@@ -1,0 +1,44 @@
+"""Torch port: the package never imports jax (the GPU machine has none)."""
+
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+
+_SCRIPT = textwrap.dedent("""
+    import sys
+    sys.modules["jax"] = None  # any `import jax` now raises ImportError
+    import torch
+    torch.set_num_threads(1)
+    import numpy as np
+    import tiny_renderer_tpu_torch as trt
+    from tiny_renderer_tpu_torch.app import flagship_model
+    from tiny_renderer_tpu_torch.models.procedural import make_textures, make_uv_sphere
+
+    model = trt.Model(mesh=make_uv_sphere(0.45, 8, 10), **make_textures(16))
+    scene = trt.Scene(model, "shadow", trt.RenderConfig(width=128, height=64), device="cpu")
+    scene.set_light_direction([0.3, 0.0, 0.95])
+    frame = scene.get_frame_buffer()
+    assert frame.shape == (64, 128, 3) and (frame > 0).any()
+    assert flagship_model().num_triangles == 5096
+    loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tiny_renderer_tpu."))]
+    assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
+    print("OK", trt.PIPELINE_NAMES)
+""")
+
+
+def test_package_imports_and_renders_without_jax():
+    proc = subprocess.run(
+        [sys.executable, "-c", _SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "OK ('shadow',)" in proc.stdout
+
+
+def test_package_sources_never_import_jax():
+    for path in (ROOT / "tiny_renderer_tpu_torch").rglob("*.py"):
+        text = path.read_text()
+        assert "import jax" not in text and "from jax" not in text, path
+        assert "from tiny_renderer_tpu." not in text and "import tiny_renderer_tpu\n" not in text, path
