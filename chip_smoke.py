@@ -109,9 +109,10 @@ def main() -> int:
     m = model.mesh
     flag_geom = {"positions": m.positions, "tex_coords": m.tex_coords, "normals": m.normals,
                  "pos_idx": m.pos_idx, "tex_idx": m.tex_idx, "normal_idx": m.normal_idx}
-    # Three identical camera-facing triangles: index 0 must win every pixel.
-    tie = soup(3, 0)
-    tie["positions"] = np.tile(np.float32([[-0.3, -0.3, 0], [0.3, -0.3, 0], [-0.3, 0.3, 0]]), (3, 1))
+    # 300 identical camera-facing triangles (more than one shared-memory
+    # chunk of records): index 0 must win every pixel.
+    tie = soup(300, 0)
+    tie["positions"] = np.tile(np.float32([[-0.3, -0.3, 0], [0.3, -0.3, 0], [-0.3, 0.3, 0]]), (300, 1))
     cases = {f"soup{s}": soup(3000, s) for s in range(3)}
     cases["tie"] = tie
     cases["flagship"] = flag_geom

@@ -3,7 +3,7 @@
 The JAX frame runs eagerly on the kernel path in interpret mode
 (backend="pallas_interpret"); its strip shade runs inside a compiled
 while_loop where XLA may contract mul+add into FMAs, so frames are held to
-the oracle tie-flip budget of CLAUDE.md: fewer than 0.5% of pixels differ.
+the repo's oracle tie-flip budget: fewer than 0.5% of pixels differ.
 Shadow-map and z coverage are integer-exact and must match exactly.
 """
 

@@ -106,14 +106,28 @@ def test_twin_row_band_matches_pallas():
     np.testing.assert_array_equal(tz.numpy(), fz.numpy()[2 * CFG.tile_h:])
 
 
-def test_depth_tiebreak_first_triangle_wins():
-    """Three identical triangles: index 0 wins every pixel (the reference
-    rejects z <= stored, shader.rs:175)."""
+@pytest.mark.parametrize("one_slot_chunks", [False, True])
+def test_depth_tiebreak_first_triangle_wins(one_slot_chunks, monkeypatch):
+    """Identical triangles: index 0 wins every pixel (the reference rejects
+    z <= stored, shader.rs:175) — within one chunk of CSR slots and across
+    chunks of one slot each."""
+    if one_slot_chunks:
+        monkeypatch.setattr(raster_cuda, "_REF_CHUNK_ELEMS", 1)
     tri = [[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0], [-0.5, 0.5, 0.0]]
-    tz, tidx = _twin(_binned(_geom_from_triangles([tri, tri, tri])))
+    tz, tidx = _twin(_binned(_geom_from_triangles([tri] * 12)))
     idx = tidx.numpy()
     assert (idx >= 0).sum() > 100
     assert (idx[idx >= 0] == 0).all()
+
+
+def test_twin_invariant_to_chunking(monkeypatch):
+    """The chunked lexicographic resolve equals the one-slot-at-a-time walk
+    bit for bit."""
+    binned = _binned(_random_scene(200, 7))
+    z, idx = _twin(binned)
+    monkeypatch.setattr(raster_cuda, "_REF_CHUNK_ELEMS", 1)
+    z1, idx1 = _twin(binned)
+    assert torch.equal(z, z1) and torch.equal(idx, idx1)
 
 
 def test_cpu_tensors_run_the_twin_without_launching():

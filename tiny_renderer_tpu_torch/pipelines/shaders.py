@@ -14,7 +14,6 @@ package, so packed planes cross between the two unchanged.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..ops import mathlib as ml
@@ -258,5 +257,5 @@ def shade_shadow(frag, uniforms, textures, config):
         1.0,
     )
     color = sample_frag(textures, frag, ("texture",))["texture"]
-    black = torch.from_numpy(np.zeros(3, np.uint8)).to(color.device)
+    black = torch.zeros(3, dtype=torch.uint8, device=color.device)
     return ml.color_blend(color, black, frag["intensity"] * shadow_coef)
