@@ -6,26 +6,44 @@
 Phases (each prints a line; any failure raises, so the exit code is not 0):
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile the raster kernel (csrc/raster.cu) with nvcc for sm_90a.
-3. kernel  — the CUDA kernel against its plain torch twin in all three output
-             modes (z, idx, z+idx) on seeded random soups, the depth tie
-             case and the flagship scene's two passes: bit-identical.
+2. build   — compile the raster kernels (csrc/raster.cu) with nvcc for sm_90a
+             and print ptxas's registers/spills for every instantiation.
+3. kernel  — every kernel mode against its plain torch twin on seeded random
+             soups, the depth tie case and the flagship scene's two passes,
+             bit-identical: K1 phase 1 (z, idx, z+idx), the gathered record
+             layout, the int16 index target, the strip plane (SL 16, and 64
+             and 24 through the shared-memory combine), phase 2 with
+             shadow's kernel spec (tex_tile 0 and 16) and with a spec of
+             const and interp planes, and K2 (both passes in one launch).
 4. slice   — Scene.render plus a 16-frame 800x800 shadow burst of the
              flagship scene through the public API: two kernel launches
              per frame, no black frame, no overflow, frames bit-identical
              to the same burst with the twin as raster, and a frame within
              the 0.5% tie budget of the same frame rendered on the CPU.
-5. timing  — kernel and twin ms per launch per mode at the flagship shapes,
-             and burst ms per frame (CUDA events / host clock after
-             warm-up), beside the card's name and power limit.
+5. knobs   — the same burst (first 4 angles) under each raster knob config
+             (fuse_passes, strip_mask + strip_planes, idx_int16,
+             csr_indirect=False + strip_mask, compact_shade=False,
+             shadow_tile=8 + fuse_passes, all on): frames bit-identical to
+             the default burst, with the launches each config implies;
+             compact_shade=False also through Scene.render (z, frame, shadow
+             equal to the default Scene.render).
+6. timing  — kernel and twin ms per launch per mode at the flagship shapes,
+             and burst ms per frame of each knob config beside the default
+             (CUDA events / host clock after warm-up, configs in turns),
+             beside the card's name and power limit.
 
-Prints a JSON line of kernel results, then, last, the device JSON line.
-The scene is diablo when assets/diablo exists, else a UV sphere of the
-same size (5,096 triangles, 1024^2 maps) made from fixed parameters.
+Launch counts are set to 0 just before each path is driven and read just
+after.  Prints a JSON line of kernel results (time, launches, error, and the
+bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
+over 3.35 TB/s, counted from this run's binned inputs), then, last, the
+device JSON line.  The scene is diablo when assets/diablo exists, else a UV
+sphere of the same size (5,096 triangles, 1024^2 maps) made from fixed
+parameters.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -36,10 +54,37 @@ import numpy as np
 import torch
 
 N_FRAMES = 16
+N_KNOB_FRAMES = 4
 DEVICE = "cuda"
 VIEW = ([0.3, 0.0, 0.95], [0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
 MODES = {"z": dict(emit_z=True, emit_idx=False), "idx": dict(emit_z=False, emit_idx=True),
          "z+idx": dict(emit_z=True, emit_idx=True)}
+# A varying spec with every plane mode: interp (uv), const (row0, du), zfrag.
+CONST_SPEC = (("uv", 2, "interp"), ("row0", 3, "const"), ("du", 2, "const"), ("zfrag", 1, "zfrag"))
+# Raster knob configs of the knob phase and the launches each makes per
+# frame of a burst (every other count 0).
+KNOBS = {
+    "fuse": (dict(fuse_passes=True), {"fused": 1}),
+    "mask+planes": (dict(strip_mask=True, strip_planes=True),
+                    {"raster": 2, "strips": 1, "planes": 1}),
+    "i16": (dict(idx_int16=True), {"raster": 2, "int16": 1}),
+    "nocsr+mask": (dict(csr_indirect=False, strip_mask=True),
+                   {"raster": 2, "gathered": 2, "strips": 1}),
+    "fullplane": (dict(compact_shade=False), {"raster": 2, "planes": 1}),
+    "sswz8+fuse": (dict(shadow_tile=8, fuse_passes=True), {"fused": 1}),
+    "all-on": (dict(fuse_passes=True, strip_mask=True, strip_planes=True, idx_int16=True,
+                    csr_indirect=False, tile_h=16, tex_tile=16, shadow_tile=16),
+               {"raster": 2, "gathered": 2, "int16": 1, "strips": 1, "planes": 1}),
+}
+PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
+PEAK_BYTES = 3.35e12  # H100 SXM HBM3
+OPS_PER_CANDIDATE = 26  # phase 1 flops per (pixel, candidate), csrc/raster.cu
+OPS_PHASE2_BASE = 16  # edge functions + exact-division barycentrics per covered pixel
+# Phase 2 flops per covered pixel and plane; texidx: two interpolations,
+# two scales, the fold (4 per coordinate), then the row-major index (2) or
+# the tile swizzle (14).
+OPS_PER_PLANE = {"interp": 5, "zfrag": 5, "const": 0, "texidx": 20}
+OPS_ROW_MAJOR, OPS_SWIZZLE = 2, 14
 
 
 def phase(name, msg):
@@ -52,14 +97,35 @@ def check(cond, msg):
 
 
 def soup(n, seed):
-    """Seeded triangle soup in the unit box, geometry-dict layout."""
+    """Seeded triangle soup in the unit box, geometry-dict layout, with
+    varied uv (some outside [0, 1]) so every varying plane varies."""
     rng = np.random.default_rng(seed)
     centers = rng.uniform(-0.9, 0.9, (n, 1, 3)).astype(np.float32)
     verts = (centers + rng.uniform(-0.06, 0.06, (n, 3, 3)).astype(np.float32)).reshape(-1, 3)
     idx = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
-    return {"positions": verts, "tex_coords": np.full((3 * n, 2), 0.5, np.float32),
+    return {"positions": verts, "tex_coords": rng.uniform(-0.1, 1.1, (3 * n, 2)).astype(np.float32),
             "normals": np.tile(np.float32([0, 0, 1]), (3 * n, 1)),
             "pos_idx": idx, "tex_idx": idx, "normal_idx": idx}
+
+
+def bound(passes, out_bytes, planes=(), covered=0):
+    """(bound_ms, bound_by) of a raster launch: phase 1 flops over every
+    (pixel, candidate) of each pass's tiles, phase 2 flops per covered
+    pixel, against the bytes of the record rows read (13 lanes, plus the
+    plane lanes), the id list, the tile offsets and the outputs."""
+    ops, nbytes = 0, out_bytes
+    for records, tris, starts, tile_px in passes:
+        n_inc = int(starts[-1] - starts[0])
+        ops += n_inc * tile_px * OPS_PER_CANDIDATE
+        rows = records.shape[0] if tris is not None else n_inc
+        lanes = max([13] + [lane + {"texidx": 6, "const": 1}.get(m, 3) for m, lane, *_ in planes])
+        nbytes += rows * lanes * 4 + starts.numel() * 4 + (n_inc * 4 if tris is not None else 0)
+    for mode, _lane, _p, _w, _h, swz in planes:
+        extra = (OPS_SWIZZLE if swz else OPS_ROW_MAJOR) if mode == "texidx" else 0
+        ops += covered * (OPS_PER_PLANE[mode] + extra)
+    ops += covered * OPS_PHASE2_BASE if planes else 0
+    t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def main() -> int:
@@ -74,6 +140,7 @@ def main() -> int:
     from tiny_renderer_tpu_torch.ops.binning import bin_triangles
     from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
     from tiny_renderer_tpu_torch.pipelines.frame import make_burst_fn, render_frame
+    from tiny_renderer_tpu_torch.pipelines.shaders import kernel_varying_spec
 
     dev = torch.device(DEVICE, 0)
     kind = torch.cuda.get_device_name(0)
@@ -88,24 +155,29 @@ def main() -> int:
     lib, seconds, log = raster_cuda.build(force=True)
     phase("build", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Compiling entry" in line or "registers" in line or "spill" in line:
             phase("build", line.strip())
 
     cfg = RenderConfig().resolve("shadow")  # 800x800, the default config
     grid = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)
+    tile_px = cfg.tile_h * cfg.tile_w
     view = [to_tensor(np.float32(v), dev) for v in VIEW]
+    model = flagship_model()
+    tex = {"texture": torch.from_numpy(np.ascontiguousarray(model.texture))}
+    specs = {f"planes-tex{t}": kernel_varying_spec("shadow", tex, tile=t) for t in (0, 16)}
+    specs["planes-const"] = CONST_SPEC
 
-    def passes(geom_np):
+    def passes(geom_np, bcfg=cfg, spec=()):
         """Binned light pass and camera pass of a scene at the view."""
         g = {k: to_tensor(v, dev) for k, v in geom_np.items()}
-        u1 = ml.shadow_pass_1_prepare(cfg, view[0], view[2], view[3])
-        u2 = ml.shadow_pass_2_prepare(cfg, *view)
-        s1 = triangle_setup(g, u1, cfg, matrix_key="shadow_matrix", cull=False)
-        s2 = triangle_setup(g, u2, cfg, needs=("vertex_intensity",))
-        return {"light": bin_triangles(s1, cfg)[:3], "camera": bin_triangles(s2, cfg)[:3]}
+        u1 = ml.shadow_pass_1_prepare(bcfg, view[0], view[2], view[3])
+        u2 = ml.shadow_pass_2_prepare(bcfg, *view)
+        s1 = triangle_setup(g, u1, bcfg, matrix_key="shadow_matrix", cull=False,
+                            needs=("vertex_intensity", "darboux"))
+        s2 = triangle_setup(g, u2, bcfg, needs=("vertex_intensity", "darboux"))
+        return {"light": bin_triangles(s1, bcfg, spec)[:3], "camera": bin_triangles(s2, bcfg, spec)[:3]}
 
-    # -- 3. kernel against twin -----------------------------------------------
-    model = flagship_model()
+    # -- 3. kernels against twins ---------------------------------------------
     m = model.mesh
     flag_geom = {"positions": m.positions, "tex_coords": m.tex_coords, "normals": m.normals,
                  "pos_idx": m.pos_idx, "tex_idx": m.tex_idx, "normal_idx": m.normal_idx}
@@ -116,28 +188,62 @@ def main() -> int:
     cases = {f"soup{s}": soup(3000, s) for s in range(3)}
     cases["tie"] = tie
     cases["flagship"] = flag_geom
-    max_err, n_cmp, covered = 0.0, 0, {}
+    gathered_cfg = dataclasses.replace(cfg, csr_indirect=False)
+    wide_cfg = dataclasses.replace(cfg, tile_h=8, tile_w=384)  # SL 24: no shuffle-only path
+    wide_grid = dict(tile_h=wide_cfg.tile_h, tile_w=wide_cfg.tile_w, tiles_y=wide_cfg.tiles_y,
+                     tiles_x=wide_cfg.tiles_x)
+    err = {k: 0.0 for k in ("depth", "gathered", "int16", "strips", "planes", "fused")}
+    n_cmp, covered = 0, {}
+
+    def compare(kind_, label, got, want):
+        nonlocal n_cmp
+        for a, b in zip(got, want):
+            check((a is None) == (b is None), f"{label}: outputs differ in kind")
+            if a is None:
+                continue
+            check(a.dtype == b.dtype and a.shape == b.shape, f"{label}: {a.dtype}{tuple(a.shape)} "
+                  f"vs twin {b.dtype}{tuple(b.shape)}")
+            check(torch.equal(a, b), f"{label}: differs from the twin")
+            err[kind_] = max(err[kind_], float((a.double() - b.double()).abs().max()))
+        n_cmp += 1
+
+    def k1(kind_, label, binned, g=grid, **kw):
+        got = raster_cuda.rasterize(*binned, **g, **kw)
+        torch.cuda.synchronize()
+        compare(kind_, label, got, raster_cuda.rasterize_reference(*binned, **g, **kw))
+        return got
+
     for cname, geom_np in cases.items():
-        for pname, binned in passes(geom_np).items():
+        base = passes(geom_np)
+        gath = passes(geom_np, gathered_cfg)
+        for pname in ("light", "camera"):
             for mode, kw in MODES.items():
-                kz, kidx = raster_cuda.rasterize(*binned, **grid, **kw)
-                torch.cuda.synchronize()
-                tz, tidx = raster_cuda.rasterize_reference(*binned, **grid, **kw)
-                torch.cuda.synchronize()
-                if kz is not None:
-                    check(torch.equal(kz, tz), f"{cname}/{pname}/{mode}: z differs from the twin")
-                    max_err = max(max_err, float((kz - tz).abs().max()))
-                if kidx is not None:
-                    check(torch.equal(kidx, tidx), f"{cname}/{pname}/{mode}: idx differs from the twin")
-                    max_err = max(max_err, float((kidx - tidx).abs().max()))
-                    covered[f"{cname}/{pname}"] = int((kidx >= 0).sum())
-                n_cmp += 1
+                out = k1("depth", f"{cname}/{pname}/{mode}", base[pname], **kw)
+                if out[1] is not None:
+                    covered[f"{cname}/{pname}"] = int((out[1] >= 0).sum())
+            k1("gathered", f"{cname}/{pname}/gathered", gath[pname])
+            k1("gathered", f"{cname}/{pname}/gathered+planes", passes(geom_np, gathered_cfg,
+               specs["planes-tex16"])[pname], emit_z=False, spec=specs["planes-tex16"])
+            k1("int16", f"{cname}/{pname}/int16", base[pname], emit_z=False, idx_dtype="int16")
+            for sl in (16, 64):
+                k1("strips", f"{cname}/{pname}/strips{sl}", base[pname], emit_z=False, emit_strips=sl)
+        k1("strips", f"{cname}/camera/strips24@384", passes(geom_np, wide_cfg)["camera"],
+           wide_grid, emit_z=False, emit_strips=24)
+        for sname, spec in specs.items():
+            sp = passes(geom_np, cfg, spec)
+            for pname in ("light", "camera"):
+                k1("planes", f"{cname}/{pname}/{sname}", sp[pname], emit_z=False, spec=spec)
+        for label, p in (("indirect", base), ("gathered", gath)):
+            got = raster_cuda.rasterize_fused(*p["light"], *p["camera"], **grid)
+            torch.cuda.synchronize()
+            compare("fused", f"{cname}/fused/{label}", got,
+                    raster_cuda.rasterize_fused_reference(*p["light"], *p["camera"], **grid))
         if cname == "tie":
-            idx = raster_cuda.rasterize(*passes(geom_np)["camera"], **grid)[1]
+            idx = raster_cuda.rasterize(*base["camera"], **grid)[1]
             check(bool((idx[idx >= 0] == 0).all()) and bool((idx >= 0).any()),
                   "tie case: triangle 0 must win every covered pixel")
     phase("kernel", f"{n_cmp} kernel/twin comparisons bit-identical (tolerance: exact), "
-          f"max_abs_err {max_err}; covered px {covered}")
+          f"max_abs_err {err}; covered px {covered}")
 
     # -- 4. slice -------------------------------------------------------------
     scene = Scene(model, "shadow", RenderConfig(), device=dev)
@@ -148,15 +254,17 @@ def main() -> int:
     burst = make_burst_fn("shadow", scene.config, keep_frames=True)
     geom, textures = scene._geom, scene._textures
 
-    raster_cuda.LAUNCHES = 0
+    raster_cuda.reset_launches()
     out1 = scene.render()
-    after_render = raster_cuda.LAUNCHES
+    after_render = dict(raster_cuda.LAUNCHES)
     out = burst(geom, textures, cams, ligs)
     torch.cuda.synchronize()
-    launches = raster_cuda.LAUNCHES
-    check(after_render == 2, f"Scene.render made {after_render} kernel launches, expected 2")
-    check(launches - after_render == 2 * N_FRAMES,
-          f"burst made {launches - after_render} kernel launches, expected {2 * N_FRAMES}")
+    counts = dict(raster_cuda.LAUNCHES)
+    launches = counts["raster"]
+    check(after_render["raster"] == 2, f"Scene.render made {after_render['raster']} kernel launches, expected 2")
+    check(launches - after_render["raster"] == 2 * N_FRAMES,
+          f"burst made {launches - after_render['raster']} kernel launches, expected {2 * N_FRAMES}")
+    check(all(v == 0 for k, v in counts.items() if k != "raster"), f"default path launched {counts}")
     frames = out["frames"]
     check(frames.shape == (N_FRAMES, cfg.height, cfg.width, 3) and frames.dtype == torch.uint8,
           f"burst frames {tuple(frames.shape)} {frames.dtype}")
@@ -169,7 +277,7 @@ def main() -> int:
     with mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference):
         twin_out = burst(geom, textures, cams, ligs)
         twin_render = scene.render()
-    check(raster_cuda.LAUNCHES == launches, "the twin burst launched the kernel")
+    check(raster_cuda.LAUNCHES == counts, "the twin burst launched a kernel")
     check(torch.equal(twin_out["frames"], frames), "burst frames differ from the twin-raster burst")
     check(torch.equal(twin_out["checksums"], out["checksums"]), "burst checksums differ")
     for k in ("frame", "z", "shadow"):
@@ -189,7 +297,37 @@ def main() -> int:
           f"frames bit-identical to the twin raster; vs the CPU frame: {frame_diff:.6%} of pixels "
           f"differ, shadow coverage differs on {shadow_diff} px")
 
-    # -- 5. timing ------------------------------------------------------------
+    # -- 5. knobs -------------------------------------------------------------
+    knob_counts, knob_bursts = {}, {}
+    for name, (knobs, per_frame) in KNOBS.items():
+        kscene = Scene(model, "shadow", RenderConfig(**knobs), device=dev)
+        kburst = make_burst_fn("shadow", kscene.config, keep_frames=True)
+        knob_bursts[name] = (kburst, kscene)
+        raster_cuda.reset_launches()
+        kout = kburst(kscene._geom, kscene._textures, cams[:N_KNOB_FRAMES], ligs[:N_KNOB_FRAMES])
+        torch.cuda.synchronize()
+        got = dict(raster_cuda.LAUNCHES)
+        knob_counts[name] = got
+        want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+        check(got == want, f"knob {name}: launches {got}, expected {want}")
+        check(torch.equal(kout["frames"], frames[:N_KNOB_FRAMES]),
+              f"knob {name}: burst frames differ from the default burst")
+        check(not bool(kout["overflow"].any()), f"knob {name}: a frame overflowed")
+        msg = f"{name}: {N_KNOB_FRAMES} frames bit-identical to the default burst, launches {got}"
+        if name == "fullplane":
+            kscene.set_light_direction(VIEW[0])
+            kscene.set_camera(*VIEW[1:])
+            raster_cuda.reset_launches()
+            kr = kscene.render()
+            torch.cuda.synchronize()
+            got = dict(raster_cuda.LAUNCHES)
+            check(got["raster"] == 2 and got["planes"] == 1, f"fullplane Scene.render launches {got}")
+            for k in ("frame", "z", "shadow"):
+                check(torch.equal(kr[k], out1[k]), f"fullplane Scene.render {k} differs from the default")
+            msg += f"; Scene.render z, frame, shadow equal to the default (launches {got})"
+        phase("knobs", msg)
+
+    # -- 6. timing ------------------------------------------------------------
     def time_launches(fn, n):
         for _ in range(2):
             fn()
@@ -202,45 +340,107 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
+    def timed(label, kernel, twin):
+        ms = (time_launches(kernel, 200), time_launches(twin, 5))
+        phase("timing", f"{label}: kernel {ms[0]:.4f} ms, twin {ms[1]:.4f} ms per launch  [{smi}]")
+        return ms
+
     flag = passes(flag_geom)
+    flag_g = passes(flag_geom, gathered_cfg)
+    spec16 = specs["planes-tex16"]
+    flag_p = passes(flag_geom, cfg, spec16)
     ms = {}
     for pname, mode in (("light", "z"), ("camera", "idx"), ("camera", "z+idx")):
         b, kw = flag[pname], MODES[mode]
-        ms[f"{pname}/{mode}"] = (
-            time_launches(lambda: raster_cuda.rasterize(*b, **grid, **kw), 200),
-            time_launches(lambda: raster_cuda.rasterize_reference(*b, **grid, **kw), 5),
-        )
-        phase("timing", f"{pname} pass {mode}: kernel {ms[f'{pname}/{mode}'][0]:.4f} ms, "
-              f"twin {ms[f'{pname}/{mode}'][1]:.4f} ms per launch  [{smi}]")
+        ms[f"{pname}/{mode}"] = timed(
+            f"{pname} pass {mode}", lambda: raster_cuda.rasterize(*b, **grid, **kw),
+            lambda: raster_cuda.rasterize_reference(*b, **grid, **kw))
+    cam = flag["camera"]
+    per_tile = {p: torch.diff(flag[p][2]).cpu() for p in ("light", "camera")}
+    worst = int((per_tile["light"] + per_tile["camera"]).max())
+    phase("timing", "flagship binning: " + ", ".join(
+        f"{p} pass {int(c.sum())} incidences on {int((c > 0).sum())} of {c.numel()} tiles "
+        f"(max {int(c.max())} per tile)" for p, c in per_tile.items())
+        + f"; both passes' worst tile {worst} candidates, whose walk alone needs "
+        f"{worst * tile_px * OPS_PER_CANDIDATE / (PEAK_FLOPS / 132) * 1e3:.4f} ms at one SM's "
+        "share of the fp32 peak (132 SMs)")
+    modes = {
+        "gathered": (flag_g["camera"], dict(emit_z=False)),
+        "int16": (cam, dict(emit_z=False, idx_dtype="int16")),
+        "strips": (cam, dict(emit_z=False, emit_strips=16)),
+        "planes": (flag_p["camera"], dict(emit_z=False, spec=spec16)),
+    }
+    for name, (b, kw) in modes.items():
+        ms[name] = timed(f"camera pass {name} {kw}", lambda: raster_cuda.rasterize(*b, **grid, **kw),
+                         lambda: raster_cuda.rasterize_reference(*b, **grid, **kw))
+    ms["fused"] = timed(
+        "fused light + camera pass",
+        lambda: raster_cuda.rasterize_fused(*flag["light"], *cam, **grid),
+        lambda: raster_cuda.rasterize_fused_reference(*flag["light"], *cam, **grid))
 
-    def burst_ms(n_reps=3):
+    def burst_ms(fn, sc, n_reps):
         best = float("inf")
         for _ in range(n_reps):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            burst(geom, textures, cams, ligs)
+            fn(sc._geom, sc._textures, cams, ligs)
             torch.cuda.synchronize()
             best = min(best, (time.perf_counter() - t0) * 1e3 / N_FRAMES)
         return best
 
-    burst_kernel = burst_ms()
+    order = {"default": (burst, scene), **knob_bursts}
+    for fn, sc in order.values():
+        burst_ms(fn, sc, 1)  # warm-up
+    burst_times = {k: float("inf") for k in order}
+    for rnd in range(2):  # in turns: forward, then backward
+        for k in (list(order) if rnd == 0 else list(order)[::-1]):
+            burst_times[k] = min(burst_times[k], burst_ms(*order[k], 2))
     with mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference):
-        burst_twin = burst_ms(1)
-    phase("timing", f"burst: {burst_kernel:.3f} ms/frame with the kernel, {burst_twin:.3f} ms/frame "
-          f"with the twin raster (host clock, best of 3 / 1 bursts of {N_FRAMES})  [{smi}]")
+        burst_twin = burst_ms(burst, scene, 1)
+    phase("timing", "burst ms/frame (host clock, best of 4 bursts of "
+          f"{N_FRAMES}, configs in turns): " + ", ".join(f"{k} {v:.3f}" for k, v in burst_times.items())
+          + f"; default with the twin raster {burst_twin:.3f}  [{smi}]")
 
-    frame_ms = ms["light/z"][0] + ms["camera/idx"][0]
-    frame_plain = ms["light/z"][1] + ms["camera/idx"][1]
+    # -- kernel results -------------------------------------------------------
+    hp, wp = cfg.padded_height, cfg.padded_width
+    px = hp * wp
+
+    def pas(b, tp=tile_px):
+        return (b[0], b[1], b[2], tp)
+
+    cam_cov = int((raster_cuda.rasterize(*flag_p["camera"], **grid, emit_z=False)[1] >= 0).sum())
+    planes16 = raster_cuda._plane_layout(spec16)
+    both = [pas(flag["light"]), pas(cam)]
+    bounds = {
+        "depth": bound(both, px * 8),
+        "gathered": bound([pas(flag_g["camera"])], px * 4),
+        "int16": bound([pas(cam)], px * 2),
+        "strips": bound([pas(cam)], px * 4 + px // 16 * 4),
+        "planes": bound([pas(flag_p["camera"])], px * 4 + len(planes16) * px * 4, planes16, cam_cov),
+        "fused": bound(both, px * 8),
+    }
+    src = "tiny_renderer_tpu_torch/csrc/raster.cu"
+    rp = "tiny_renderer_tpu/ops/raster_pallas.py"
+    entries = [
+        ("raster_depth (K1 phase 1: light pass depth-only + camera pass idx-only, ms per frame)",
+         f"{rp}:167", "depth", counts["raster"],
+         (ms["light/z"][0] + ms["camera/idx"][0], ms["light/z"][1] + ms["camera/idx"][1])),
+        ("raster_depth, gathered records (K1 tris=None; camera pass idx-only)", f"{rp}:208",
+         "gathered", knob_counts["nocsr+mask"]["gathered"], ms["gathered"]),
+        ("raster_depth, int16 index target (K1; camera pass)", f"{rp}:231", "int16",
+         knob_counts["i16"]["int16"], ms["int16"]),
+        ("raster_depth, strip plane emit_strips=16 (K1; camera pass)", f"{rp}:236", "strips",
+         knob_counts["mask+planes"]["strips"], ms["strips"]),
+        ("raster_depth, phase 2 varying planes (K1 vary_body; camera pass, shadow kernel spec, "
+         "tex_tile 16)", f"{rp}:257", "planes", knob_counts["fullplane"]["planes"], ms["planes"]),
+        ("raster_fused (K2: light pass depth + camera pass idx in one launch)", f"{rp}:466",
+         "fused", knob_counts["fuse"]["fused"], ms["fused"]),
+    ]
     print(json.dumps({"kernels": [{
-        "name": "raster_depth (K1 phase 1: light pass depth-only + camera pass idx-only, ms per frame)",
-        "route": "cuda",
-        "source": "tiny_renderer_tpu_torch/csrc/raster.cu",
-        "replaces": "tiny_renderer_tpu/ops/raster_pallas.py:167",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": frame_ms,
-        "plain_ms": frame_plain,
-    }]}), flush=True)
+        "name": name, "route": "cuda", "source": src, "replaces": replaces,
+        "launches": n, "max_abs_err": err[key], "ms": t[0], "plain_ms": t[1],
+        "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
+    } for name, replaces, key, n, t in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

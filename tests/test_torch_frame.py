@@ -140,9 +140,7 @@ def test_burst_matches_per_frame():
         assert bool(out["overflow"][i]) == bool(one["overflow"])
 
 
-@pytest.mark.parametrize("knob", [dict(fuse_passes=True), dict(idx_int16=True),
-                                  dict(strip_mask=True), dict(strip_planes=True),
-                                  dict(compact_shade=False), dict(row_bands=2)])
+@pytest.mark.parametrize("knob", [pytest.param(dict(row_bands=2), id="row_bands")])
 def test_unported_config_raises(knob):
     g, t = scene_arrays(GEOM, TEX, "cpu")
     with pytest.raises(NotImplementedError):

@@ -18,11 +18,14 @@ from tiny_renderer_tpu.models.procedural import make_uv_sphere, to_geom
 from tiny_renderer_tpu.ops import binning as jbin
 from tiny_renderer_tpu.ops import mathlib as jml
 from tiny_renderer_tpu.ops import vertex as jvx
+from tiny_renderer_tpu.models.procedural import make_textures
+from tiny_renderer_tpu.pipelines import shaders as jsh
 from tiny_renderer_tpu.pipelines.shaders import VARYING_SPECS
 from tiny_renderer_tpu_torch.convert import config_from, to_tensor
 from tiny_renderer_tpu_torch.ops import binning as tbin
 from tiny_renderer_tpu_torch.ops import mathlib as tml
 from tiny_renderer_tpu_torch.ops import vertex as tvx
+from tiny_renderer_tpu_torch.pipelines import shaders as tsh
 
 LIGHT = np.array([0.3, 0.2, 0.95], np.float32)
 LOOK_FROM = np.array([0.2, 0.1, 0.98], np.float32)
@@ -171,6 +174,47 @@ def test_pack_records_with_varying_lanes_match():
         np.asarray(jbin.pack_triangle_records(js, spec, np)),
     )
     assert tbin.record_lanes(spec) == jbin.record_lanes(spec)
+
+
+@pytest.mark.parametrize("compact", [False, True])
+def test_bin_triangles_gathered_matches(compact):
+    """csr_indirect=False: the records gathered into CSR order, no id list."""
+    cfg = dataclasses.replace(CFG, csr_indirect=False, binning_compact=compact).resolve("shadow")
+    js, ts = _setups(SCENES["sphere"], cfg)
+    spec = VARYING_SPECS["shadow"]
+    jr, jt, jstarts, jovf = jbin.bin_triangles(js, cfg, spec)
+    tr, tt, tstarts, tovf = tbin.bin_triangles(ts, config_from(cfg), spec)
+    assert jt is None and tt is None
+    assert tr.shape == (jbin.incidence_cap(ts["valid"].shape[0], cfg), tbin.record_lanes(spec))
+    np.testing.assert_array_equal(tr.numpy(), np.asarray(jr))
+    np.testing.assert_array_equal(tstarts.numpy(), np.asarray(jstarts))
+    assert bool(tovf) == bool(jovf)
+
+
+def test_pack_records_with_const_lanes_match():
+    """Per-triangle "const" record lanes (shaders._CONST_SOURCES)."""
+    js, ts = _setups(SCENES["sphere"], CFG, needs=("vertex_intensity", "darboux"))
+    spec = (("uv", 2, "interp"), ("row0", 3, "const"), ("row1", 3, "const"),
+            ("du", 2, "const"), ("dv", 2, "const"), ("zfrag", 1, "zfrag"))
+    np.testing.assert_array_equal(
+        tbin.pack_triangle_records(ts, spec).numpy(),
+        np.asarray(jbin.pack_triangle_records(js, spec, np)),
+    )
+    assert tbin.record_lanes(spec) == jbin.record_lanes(spec)
+
+
+@pytest.mark.parametrize("tile", [0, 16, 24])
+def test_kernel_varying_spec_matches(tile):
+    """The kernel's spec (texel-index plane for uv) and its packed records."""
+    tex = make_textures(64)
+    want = jsh.kernel_varying_spec("shadow", tex, tile=tile)
+    got = tsh.kernel_varying_spec("shadow", {k: to_tensor(v, "cpu") for k, v in tex.items()}, tile=tile)
+    assert got == want and tsh.num_planes(got) == jsh.num_planes(want) == 3
+    js, ts = _setups(SCENES["sphere"], CFG)
+    np.testing.assert_array_equal(
+        tbin.pack_triangle_records(ts, got).numpy(),
+        np.asarray(jbin.pack_triangle_records(js, want, np)),
+    )
 
 
 def test_compact_scatter_matches():

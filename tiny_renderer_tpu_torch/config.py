@@ -3,10 +3,9 @@
 The same frozen dataclass as ``tiny_renderer_tpu.config``: identical field
 names, defaults and validation, so one config object (or its
 ``dataclasses.asdict``, see ``convert.config_from``) drives both packages in
-the parity tests.  Fields that only select TPU-side layouts (fused passes,
-int16 index target, strip mask, strip planes, row bands) are carried for that
-reason; the port's frame path rejects the settings it does not implement
-rather than silently ignoring them.
+the parity tests.  The port's frame path honours every raster knob below
+except ``row_bands > 1`` (TPU on-chip memory banding), which it rejects
+rather than silently ignoring.
 """
 
 from __future__ import annotations
@@ -49,10 +48,10 @@ class RenderConfig:
     tile_w: int = 128
     # Compact real incidences before the binning sort (same CSR result).
     binning_compact: bool = False
-    # Indirect CSR records: (T, lanes) table + (cap,) sorted triangle ids.
-    # The port always bins this way.
+    # Indirect CSR records: (T, lanes) table + (cap,) sorted triangle ids;
+    # False gathers the records into CSR order, (cap, lanes).
     csr_indirect: bool = True
-    # Raster-emitted per-strip coverage plane (K1 emit_strips; not ported).
+    # Raster-emitted per-strip coverage plane (K1 emit_strips).
     strip_mask: bool = False
     # Global cap on (tile, triangle) incidences; None = max(4*T, 4096).
     max_incidences: int | None = None
@@ -64,9 +63,9 @@ class RenderConfig:
     # Triangles per depth-loop iteration of the TPU kernel; the result is
     # invariant to it and the CUDA kernel has no such knob.
     raster_group: int = 16
-    # Both passes' rasters in one launch (K2; not ported).
+    # Both passes' rasters in one launch (K2).
     fuse_passes: bool = False
-    # int16 winning-index target (K1 int16 mode; not ported).
+    # int16 winning-index target (K1 int16 mode).
     idx_int16: bool = False
     # Strip shade writeback as one packed RGB word per pixel.
     strip_pack_words: bool = True
@@ -75,8 +74,7 @@ class RenderConfig:
     # Strips per shade batch in the JAX while_loop; the port shades every
     # covered strip in one batch (same pixels).
     strip_batch: int = 512
-    # Kernel-interpolated varying planes for the strip shade (K1 phase 2;
-    # not ported).
+    # Kernel-interpolated varying planes for the strip shade (K1 phase 2).
     strip_planes: bool = False
     strip_len: int = 16
 

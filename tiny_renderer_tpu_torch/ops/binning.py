@@ -9,12 +9,13 @@ reference's polygon-order depth tie-break (shader.rs:169-180).  Coverage
 caps (span clamp, global incidence cap) drop deterministically and are
 reported through ``overflowed``.
 
-The port always returns the indirect layout: the compact (T, lanes) record
-table plus the (cap,) sorted triangle-id list the raster kernel indirects
-through.  The JAX module's fallback to a gathered (cap, lanes) layout above
-SMEM/VMEM budgets (binning.py:137-161, :277-281) guards TPU on-chip memory
-walls that a CUDA kernel reading device memory does not have, and is not
-ported.
+With ``config.csr_indirect`` (the default) the result is the indirect
+layout: the compact (T, lanes) record table plus the (cap,) sorted
+triangle-id list the raster kernel indirects through.  Without it, the
+records are gathered into CSR order, (cap, lanes), and the id list is None.
+The JAX module also falls back to the gathered layout above SMEM/VMEM
+budgets (binning.py:137-161, :277-281); those guard TPU on-chip memory walls
+that a CUDA kernel reading device memory does not have, and are not ported.
 """
 
 from __future__ import annotations
@@ -62,7 +63,7 @@ def record_lanes(spec) -> int:
 
 def pack_triangle_records(setup, spec=()):
     """(T, record_lanes(spec)) f32 record per triangle."""
-    from ..pipelines.shaders import _INTERP_SOURCES
+    from ..pipelines.shaders import _CONST_SOURCES, _INTERP_SOURCES
 
     cz = setup["cz"]
     czf = cz.to(torch.float32)
@@ -86,7 +87,8 @@ def pack_triangle_records(setup, spec=()):
                 for v in range(3):
                     cols.append(_INTERP_SOURCES[name](setup, c, v))
         elif mode == "const":
-            raise NotImplementedError(f"const record lanes ({name}) are not ported")
+            for c in range(comps):
+                cols.append(setup[_CONST_SOURCES[name]][:, c])
         elif mode.startswith("texidx"):
             for c in range(2):
                 for v in range(3):
@@ -113,10 +115,12 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
     describes the local band); 0 for the full frame.
 
     Returns (records, tris, starts, overflowed):
-      records: (T, record_lanes(spec)) f32 per-triangle table
+      records: (T, record_lanes(spec)) f32 per-triangle table, or with
+        config.csr_indirect=False the (cap, record_lanes(spec)) rows of that
+        table in CSR order
       tris: (cap,) i32 triangle ids in (tile, triangle) order; slots past
         the real incidences hold T-1 (never read: they lie outside every
-        tile's range)
+        tile's range).  None with config.csr_indirect=False.
       starts: (num_tiles + 1,) i32; tile t owns slots [starts[t], starts[t+1])
       overflowed: 0-d bool, a coverage cap was hit
     """
@@ -185,4 +189,7 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
     overflowed = (total > cap) | span_clamped
 
     csr_tris = (keys_sorted[:cap] & (K - 1)).clamp(max=T - 1).to(torch.int32)
-    return pack_triangle_records(setup, spec), csr_tris, starts, overflowed
+    records = pack_triangle_records(setup, spec)
+    if config.csr_indirect:
+        return records, csr_tris, starts, overflowed
+    return records[csr_tris.long()], None, starts, overflowed

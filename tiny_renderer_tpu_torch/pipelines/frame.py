@@ -1,17 +1,28 @@
-"""The frame path: uniforms -> vertex stage -> binning -> raster -> strip shade
+"""The frame path: uniforms -> vertex stage -> binning -> raster -> shade
 (``tiny_renderer_tpu.pipelines.frame``).
 
-Ported so far: the two-pass ``shadow`` pipeline on the kernel path with the
-strip-compacted shade — the path ``__graft_entry__.entry()`` and the bench
-headline take.  A frame launches the raster twice (the light pass
-depth-only, the camera pass index-only, or depth + index when the caller
-wants z), then shades the covered strips.  Everything runs eagerly on the
-device of the input tensors: CUDA tensors launch the CUDA raster kernel,
-CPU tensors run its plain torch twin.
+Ported so far: the two-pass ``shadow`` pipeline on the kernel path, under
+every raster knob of the JAX package (each bit-identical to the default
+frame):
 
-Config settings whose TPU kernels or layouts are not ported
-(``fuse_passes``, ``idx_int16``, ``strip_mask``, ``strip_planes``,
-``compact_shade=False``, ``row_bands``) raise ``NotImplementedError``.
+* default: the raster runs twice (the light pass depth-only, the camera
+  pass index-only, or depth + index when the caller wants z), then the
+  strip-compacted shade re-derives the varyings of the covered strips by an
+  attribute gather;
+* ``fuse_passes``: both rasters in one launch (K2), where
+  ``_use_fused_raster`` allows it;
+* ``strip_mask``: the camera pass also emits the per-strip coverage plane;
+* ``strip_planes``: the camera pass also interpolates the varying planes
+  (K1 phase 2) that the strip shade then reads instead of gathering;
+* ``compact_shade=False``: full-screen varying planes and a full-screen
+  shade;
+* ``idx_int16``, ``csr_indirect=False``, ``strip_pack_words=False``,
+  ``tex_tile``, ``shadow_tile``, ``strip_len``: layouts.
+
+Everything runs eagerly on the device of the input tensors: CUDA tensors
+launch the CUDA raster kernels, CPU tensors run their plain torch twins.
+``row_bands > 1`` (the TPU's on-chip memory banding) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -26,7 +37,7 @@ from ..ops import raster_cuda
 from ..ops.binning import bin_triangles, compact_scatter
 from ..ops.vertex import triangle_setup
 from . import shaders
-from .shaders import VARYING_SPECS, compute_varyings
+from .shaders import VARYING_SPECS, compute_varyings, kernel_varying_spec
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,43 +57,134 @@ PIPELINES = {
 }
 
 # Texture maps each pipeline samples (word-packed together).
-_PIPELINE_MAPS = {"shadow": ("texture",)}
+_PIPELINE_MAPS = shaders._PIPELINE_MAPS_FOR_SPEC
 
 # Vertex-attribute keys the shade gathers per fragment for compute_varyings.
 _GATHER_KEYS = {"shadow": ("uv", "intensity", "zv")}
 
 
 def _check_config(config):
-    """Refuse settings whose TPU kernels or layouts the port lacks."""
-    unported = {
-        "fuse_passes": config.fuse_passes,  # K2, the fused two-pass kernel
-        "idx_int16": config.idx_int16,  # K1's int16 index target
-        "strip_mask": config.strip_mask,  # K1's emit_strips plane
-        "strip_planes": config.strip_planes,  # K1 phase 2 varying planes
-        "compact_shade=False": not config.compact_shade,  # K1 phase 2 full-screen shade
-        "row_bands": config.row_bands > 1,  # TPU on-chip memory banding
-    }
-    bad = [k for k, v in unported.items() if v]
-    if bad:
-        raise NotImplementedError(f"not ported to the torch frame path: {', '.join(bad)}")
+    """Refuse the one setting the port does not implement."""
+    if config.row_bands > 1:
+        raise NotImplementedError(
+            "not ported to the torch frame path: row_bands (TPU on-chip memory banding)"
+        )
 
 
-def _rasterize(setup, config, emit_idx=True, emit_z=True):
-    """Bin + raster one pass.  Returns (z, idx, overflowed) cropped to
-    (height, width); z/idx are None when not emitted."""
+def _rasterize(setup, config, spec=(), emit_idx=True, emit_z=True, emit_strips=0):
+    """Bin + raster one pass.  Returns (z, idx, varys, strips, overflowed)
+    cropped to (height, width) (strips to (height, width / emit_strips));
+    absent outputs are None."""
     H, W = config.height, config.width
-    records, tris, starts, overflowed = bin_triangles(setup, config)
-    z, idx = raster_cuda.rasterize(
+    records, tris, starts, overflowed = bin_triangles(setup, config, spec)
+    z, idx, varys, strips = raster_cuda.rasterize(
         records, tris, starts,
         tile_h=config.tile_h, tile_w=config.tile_w,
         tiles_y=config.tiles_y, tiles_x=config.tiles_x,
-        emit_idx=emit_idx, emit_z=emit_z,
+        spec=spec, emit_idx=emit_idx, emit_z=emit_z, emit_strips=emit_strips,
+        idx_dtype=_idx_dtype(setup, config),
     )
     return (
         z[:H, :W] if z is not None else None,
         idx[:H, :W] if idx is not None else None,
+        varys[:, :H, :W] if varys is not None else None,
+        strips[:H, : W // emit_strips] if strips is not None else None,
         overflowed,
     )
+
+
+def _idx_dtype(setup, config):
+    """int16 index target when the triangle count fits and the tile height
+    is a multiple of 16 (the JAX gate, kept so both packages pick the same
+    target); int32 otherwise."""
+    if config.idx_int16 and setup["a1"].shape[0] < 32768 and config.tile_h % 16 == 0:
+        return "int16"
+    return "int32"
+
+
+def _strip_mask_len(config):
+    """strip_len when the camera pass should emit the strip coverage plane
+    for the strip-compacted shade, else 0.  Flat strips align with the
+    (H, W/SL) plane only when width % SL == 0 (strips never cross rows)."""
+    SL = config.strip_len
+    if (config.strip_mask and config.compact_shade
+            and config.width % SL == 0 and config.tile_w % SL == 0):
+        return SL
+    return 0
+
+
+def _use_fused_raster(spec, config, setup, pspec, needs_z):
+    """The gate of the fused two-pass kernel (the JAX predicate): the
+    pipeline is two-pass, the shade compact, fuse_passes set, the camera z
+    not wanted, the index int32, and no planes spec (K2 has neither a
+    varying phase nor an int16 target).  The JAX gate's one-band condition
+    always holds here: the port has no row bands."""
+    return (
+        spec.two_pass
+        and config.compact_shade
+        and config.fuse_passes
+        and not needs_z
+        and _idx_dtype(setup, config) == "int32"
+        and pspec is None
+    )
+
+
+def _fused_raster(setup1, setup, config):
+    """Bin both passes (no varying lanes) and run the fused kernel.  Returns
+    (shadow_z, idx, ovf1, ovf2) cropped to (height, width), each pass's
+    coord_overflow folded in."""
+    H, W = config.height, config.width
+    r1, t1, s1, ovfb1 = bin_triangles(setup1, config)
+    r2, t2, s2, ovfb2 = bin_triangles(setup, config)
+    shadow_z, idx = raster_cuda.rasterize_fused(
+        r1, t1, s1, r2, t2, s2,
+        tile_h=config.tile_h, tile_w=config.tile_w,
+        tiles_y=config.tiles_y, tiles_x=config.tiles_x,
+    )
+    return (
+        shadow_z[:H, :W], idx[:H, :W],
+        ovfb1 | setup1["coord_overflow"], ovfb2 | setup["coord_overflow"],
+    )
+
+
+def _pixel_coords(H, W, device):
+    py, px = torch.meshgrid(
+        torch.arange(H, dtype=torch.int32, device=device),
+        torch.arange(W, dtype=torch.int32, device=device),
+        indexing="ij",
+    )
+    return px, py
+
+
+def _unpack_planes(spec, varys):
+    """Varying dict from a plane-major (n_planes, ...) tensor: scalar planes
+    pass through, vector planes get the component axis moved last."""
+    out = {}
+    p = 0
+    for name, comps, _mode in spec:
+        out[name] = varys[p] if comps == 1 else torch.movedim(varys[p:p + comps], 0, -1)
+        p += comps
+    return out
+
+
+def _fragments_from_planes(spec, varys, H, W):
+    """Fragment dict from the kernel's interpolated varying planes."""
+    frag = _unpack_planes(spec, varys)
+    frag["x"], frag["y"] = _pixel_coords(H, W, varys.device)
+    return frag
+
+
+def _planes_spec(pipeline, textures, config):
+    """Kernel varying spec for the strip_planes hybrid, or None when it does
+    not apply: per-triangle "const" varyings (darboux) and custom "attr:"
+    planes would still need a per-fragment gather, so they keep the packed
+    attribute gather."""
+    if not config.strip_planes:
+        return None
+    if any(mode == "const" or name.startswith("attr:")
+           for (name, _, mode) in VARYING_SPECS[pipeline]):
+        return None
+    return kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
 
 
 def _gather_fragments(setup, idx, keys, pixel_coords):
@@ -127,30 +229,42 @@ def _shadow_for_shade(shadow_z, spec, config):
     return shaders.swizzle_plane(shadow_z, t) if t else shadow_z
 
 
-def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z):
-    """Strip-compacted shading: the gather path runs only on covered
-    config.strip_len-pixel strips, and writes back one packed RGB word per
-    pixel.
+def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
+                  strip_mask=None, planes=None, planes_spec=()):
+    """Strip-compacted shading: the shade runs only on covered
+    config.strip_len-pixel strips.
 
     The JAX module walks the covered strips in fixed-size batches inside a
     while_loop (static shapes for the TPU).  Here every covered strip is
     shaded in one batch; the per-fragment math is elementwise, so the
     pixels are identical.  Sizing that batch costs one host sync per frame
-    (the covered-strip count).  Returns the (H, W, 3) u8 frame, uncovered
-    pixels black.
+    (the covered-strip count).
+
+    strip_mask (config.strip_mask): the raster's (H, W/SL) per-strip max
+    index, read instead of the full idx plane to find covered strips.
+    planes/planes_spec (config.strip_planes): the raster's (P, H, W)
+    varying planes, whose covered strips replace the attribute gather and
+    compute_varyings (the kernel's interpolation is expression-identical).
+    The writeback is one packed RGB word per pixel (config.strip_pack_words)
+    or the u8 triples.  Returns the (H, W, 3) u8 frame, uncovered pixels
+    black.
     """
     spec = PIPELINES[pipeline]
     H, W = idx.shape
     HW = H * W
     SL = config.strip_len
     n_strips = -(-HW // SL)
+    pad = n_strips * SL - HW
     dev = idx.device
 
     flat = idx.reshape(-1)
-    if n_strips * SL != HW:
-        flat = torch.cat([flat, flat.new_full((n_strips * SL - HW,), -1)])
+    if pad:
+        flat = torch.cat([flat, flat.new_full((pad,), -1)])
     strips = flat.reshape(n_strips, SL)
-    cov = (strips >= 0).any(dim=1)
+    if strip_mask is not None:
+        cov = strip_mask.reshape(-1) >= 0
+    else:
+        cov = (strips >= 0).any(dim=1)
     count = int(cov.sum())  # the per-frame host sync
     ids = compact_scatter(
         cov, torch.arange(n_strips, dtype=torch.int64, device=dev), n_strips, n_strips
@@ -161,16 +275,28 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z):
     base = (ids[:, None] * SL + lane[None, :]).clamp(max=HW - 1)
     px = base % W
     py = base // W
-    frag = _gather_fragments(setup, sidx, _GATHER_KEYS[pipeline], (px, py))
-    varys = compute_varyings(frag, VARYING_SPECS[pipeline])
+    if planes is None:
+        frag = _gather_fragments(setup, sidx, _GATHER_KEYS[pipeline], (px, py))
+        varys = compute_varyings(frag, VARYING_SPECS[pipeline])
+    else:
+        vflat = planes.reshape(planes.shape[0], -1)
+        if pad:
+            vflat = torch.nn.functional.pad(vflat, (0, pad))
+        varys = _unpack_planes(planes_spec, vflat.reshape(-1, n_strips, SL)[:, ids])
     varys["x"] = px
     varys["y"] = py
     if spec.two_pass:
         varys["shadow_buffer"] = shadow_z
-    colors = spec.shade(varys, uniforms, textures, config).to(torch.int32)  # (count, SL, 3)
-    word = colors[..., 0] | (colors[..., 1] << 8) | (colors[..., 2] << 16)
+    colors = spec.shade(varys, uniforms, textures, config)  # (count, SL, 3) u8
+    covered = sidx >= 0
+    if not config.strip_pack_words:
+        acc = torch.zeros((n_strips, SL, 3), dtype=torch.uint8, device=dev)
+        acc[ids] = torch.where(covered[..., None], colors, 0).to(torch.uint8)
+        return acc.reshape(-1, 3)[:HW].reshape(H, W, 3)
+    c32 = colors.to(torch.int32)
+    word = c32[..., 0] | (c32[..., 1] << 8) | (c32[..., 2] << 16)
     acc = torch.zeros((n_strips, SL), dtype=torch.int32, device=dev)
-    acc[ids] = torch.where(sidx >= 0, word, 0)
+    acc[ids] = torch.where(covered, word, 0)
     w = acc.reshape(-1)[:HW].reshape(H, W)
     return torch.stack([w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF], dim=-1).to(torch.uint8)
 
@@ -219,24 +345,50 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
             "overflow": torch.zeros((), dtype=torch.bool, device=dev),
         }
 
+    compact = config.compact_shade
+    pspec = _planes_spec(pipeline, textures, config) if compact else None
     u1 = ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
     setup1 = triangle_setup(geom, u1, config, matrix_key="shadow_matrix", cull=False)
     uniforms = ml.shadow_pass_2_prepare(config, light_direction, look_from, look_at, up)
     uniforms["shadow_matrix"] = u1["shadow_matrix"]
     setup = triangle_setup(geom, uniforms, config, needs=spec.needs)
 
-    # Light pass: depth only.  Camera pass: index (and z when wanted).
-    shadow_z, _, ovf1 = _rasterize(setup1, config, emit_idx=False)
-    ovf1 = ovf1 | setup1["coord_overflow"]
-    z, idx, ovf2 = _rasterize(setup, config, emit_z=needs_z)
-    ovf2 = ovf2 | setup["coord_overflow"]
+    if _use_fused_raster(spec, config, setup, pspec, needs_z):
+        shadow_z, idx, ovf1, ovf2 = _fused_raster(setup1, setup, config)
+        z, varys, strips, kspec = None, None, None, ()
+    else:
+        # Light pass: depth only.  Camera pass: index (and z when wanted),
+        # plus the strip plane and/or varying planes the shade reads.
+        shadow_z, _, _, _, ovf1 = _rasterize(setup1, config, emit_idx=False)
+        ovf1 = ovf1 | setup1["coord_overflow"]
+        if compact:
+            kspec = pspec or ()
+        else:
+            kspec = kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
+        z, idx, varys, strips, ovf2 = _rasterize(
+            setup, config, spec=kspec, emit_z=needs_z,
+            emit_strips=_strip_mask_len(config) if compact else 0,
+        )
+        ovf2 = ovf2 | setup["coord_overflow"]
 
+    # The shade reads the shadow map through its own (possibly
+    # tile-swizzled) copy; callers see row-major.
+    shadow_shade = _shadow_for_shade(shadow_z, spec, config)
     if _pk_needed(textures, pipeline, config.tex_tile):
         textures = prepack_textures(textures, pipeline, tile=config.tex_tile)
-    frame = _shade_strips(
-        setup, idx, pipeline, uniforms, textures, config,
-        _shadow_for_shade(shadow_z, spec, config),
-    )
+    if compact:
+        frame = _shade_strips(
+            setup, idx, pipeline, uniforms, textures, config, shadow_shade,
+            strip_mask=strips, planes=varys, planes_spec=kspec,
+        )
+    else:
+        # Full-screen shade of the kernel's varying planes.  (The JAX
+        # module's per-triangle const gather serves darboux only.)
+        frag = _fragments_from_planes(kspec, varys, H, W)
+        if spec.two_pass:
+            frag["shadow_buffer"] = shadow_shade
+        colors = spec.shade(frag, uniforms, textures, config)
+        frame = torch.where((idx >= 0)[..., None], colors, 0).to(torch.uint8)
     # overflow: a binning coverage cap was hit, or triangles beyond the
     # int32 exactness envelope were dropped.
     return {"frame": frame, "z": z, "shadow": shadow_z, "overflow": ovf1 | ovf2}

@@ -1,10 +1,11 @@
 """Fragment-stage functions of the shadow pipeline (``tiny_renderer_tpu.pipelines.shaders``).
 
-Shading is split as in the JAX module: varying interpolation
-(``VARYING_SPECS`` + ``compute_varyings``) from gathered per-fragment
-triangle attributes, then a pure ``shade_*`` function over any leading batch
-shape.  Only the shadow pipeline's shade is ported so far; the other six
-wait (ROADMAP Queue 1 item 8).
+Shading is split as in the JAX module: varying interpolation — from
+gathered per-fragment triangle attributes (``VARYING_SPECS`` +
+``compute_varyings``) or by the raster kernel (``kernel_varying_spec``) —
+then a pure ``shade_*`` function over any leading batch shape.  Only the
+shadow pipeline's shade is ported so far; the other six wait (ROADMAP
+Queue 1 item 8).
 
 Textures are sampled through the word-packed plane of ``pack_textures``:
 each texel's RGB in one int32 word, optionally tile-swizzled
@@ -26,12 +27,53 @@ VARYING_SPECS = {
 }
 
 # Setup-dict source of each "interp" varying, values[v][c] per vertex (used
-# by binning.pack_triangle_records).  The darboux pipeline's local_z and
-# "const" varyings arrive with that pipeline.
+# by binning.pack_triangle_records).  The darboux pipeline's local_z arrives
+# with that pipeline.
 _INTERP_SOURCES = {
     "uv": lambda s, c, v: s["uv"][:, v, c],
     "intensity": lambda s, c, v: s["intensity"][:, v],
 }
+# Setup key of each "const" varying, (T, comps) per triangle (the record
+# lanes of pack_triangle_records, and the fragment key compute_varyings reads).
+_CONST_SOURCES = {"row0": "row0n", "row1": "row1n", "du": "du", "dv": "dv"}
+
+# Texture maps each pipeline samples (word-packed together).
+_PIPELINE_MAPS_FOR_SPEC = {"shadow": ("texture",)}
+
+
+def num_planes(spec) -> int:
+    return sum(comps for (_, comps, _) in spec)
+
+
+def kernel_varying_spec(pipeline, textures, tile: int = 0):
+    """The varying spec the raster kernel emits planes for.
+
+    When the pipeline's maps share dimensions, the interpolated uv (whose
+    only consumer is texture sampling) becomes one texel-index plane
+    ("texidx:W:H[:tile]", indices into the packed plane's layout for
+    config.tex_tile) instead of two uv planes.  Falls back to the reference
+    spec when texture dims are mixed.  (The JAX function also drops
+    darboux's per-triangle constants; they arrive with that pipeline.)
+    """
+    spec = VARYING_SPECS[pipeline]
+    names = _PIPELINE_MAPS_FOR_SPEC.get(pipeline, ())
+    if not names:
+        return spec
+    dims = {tuple(textures[n].shape[:2]) for n in names}
+    if "normal_map_tangent" in names:
+        dims.add(tuple(textures["normal_map"].shape[:2]))
+    if len(dims) != 1:
+        return spec
+    h, w = next(iter(dims))
+    tile = _effective_tile(tile, h, w)
+    out = []
+    for name, comps, mode in spec:
+        if name == "uv":
+            m = f"texidx:{w}:{h}:{tile}" if tile else f"texidx:{w}:{h}"
+            out.append(("texidx", 1, m))
+        else:
+            out.append((name, comps, mode))
+    return tuple(out)
 
 
 def compute_varyings(frag, spec):
@@ -54,8 +96,8 @@ def compute_varyings(frag, spec):
                      for c in range(comps)],
                     dim=-1,
                 )
-        else:
-            raise NotImplementedError(f"varying mode {mode!r} ({name}) is not ported")
+        else:  # const
+            out[name] = frag[_CONST_SOURCES[name]]
     return out
 
 
@@ -166,21 +208,31 @@ def sample_maps(textures, uv, names):
     flat = pk.reshape(-1, pk.shape[-1])
     idx = _swizzle_index(cx, cy, w, tile) if tile else cy * w + cx
     g = flat[idx]  # (..., n) i32 words
+    return {n: _decode_map(n, _unpack_rgb(g[..., i])) for i, n in enumerate(names)}
 
-    def decode(n, raw):
-        if n in ("normal_map", "normal_map_tangent"):
-            return _decode_normal(raw)
-        if n == "specular_map":
-            return raw[..., 0].to(torch.float32)
-        return raw
 
-    return {n: decode(n, _unpack_rgb(g[..., i])) for i, n in enumerate(names)}
+def _decode_map(name, raw):
+    """A map's sample from its (..., 3) u8 texel."""
+    if name in ("normal_map", "normal_map_tangent"):
+        return _decode_normal(raw)
+    if name == "specular_map":
+        return raw[..., 0].to(torch.float32)
+    return raw
 
 
 def sample_frag(textures, frag, names):
-    """Sample the pipeline's maps for a fragment batch at frag["uv"].  (The
-    JAX module's kernel texel-index plane arrives with K1 phase 2.)"""
-    return sample_maps(textures, frag["uv"], names)
+    """Sample the pipeline's maps for a fragment batch: through the kernel's
+    texel-index plane frag["texidx"] when present (one gather, no
+    coordinate math; the index is already in the packed plane's layout),
+    else at frag["uv"] through sample_maps."""
+    texidx = frag.get("texidx")
+    if texidx is None:
+        return sample_maps(textures, frag["uv"], names)
+    pk, _ = _find_pk(textures, names)
+    if pk is None:
+        raise KeyError(f"no packed texture plane {_pk_key(names)!r}; call pack_textures")
+    g = pk.reshape(-1, len(names))[texidx.long()]  # (..., n) i32 words
+    return {n: _decode_map(n, _unpack_rgb(g[..., i])) for i, n in enumerate(names)}
 
 
 def mat3_vec(m, v):
