@@ -14,7 +14,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              layout, the int16 index target, the strip plane (SL 16, and 64
              and 24 through the shared-memory combine), phase 2 with
              shadow's kernel spec (tex_tile 0 and 16) and with a spec of
-             const and interp planes, and K2 (both passes in one launch).
+             const and interp planes, K2 (both passes in one launch), and
+             the all-on knob config's two launches on its 16x128 tiles
+             (gathered + int16 + strips + planes in one camera launch).
 4. slice   — Scene.render plus a 16-frame 800x800 shadow burst of the
              flagship scene through the public API: two kernel launches
              per frame, no black frame, no overflow, frames bit-identical
@@ -35,7 +37,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 Launch counts are set to 0 just before each path is driven and read just
 after.  Prints a JSON line of kernel results (time, launches, error, and the
 bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
-over 3.35 TB/s, counted from this run's binned inputs), then, last, the
+over 3.35 TB/s, counted from this run's binned inputs, with phase 1's
+operations only at the pixels inside each candidate's bbox), then, last, the
 device JSON line.  The scene is diablo when assets/diablo exists, else a UV
 sphere of the same size (5,096 triangles, 1024^2 maps) made from fixed
 parameters.
@@ -78,7 +81,7 @@ KNOBS = {
 }
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
-OPS_PER_CANDIDATE = 26  # phase 1 flops per (pixel, candidate), csrc/raster.cu
+OPS_PER_CANDIDATE = 26  # phase 1 flops per (pixel, candidate) test, csrc/raster.cu
 OPS_PHASE2_BASE = 16  # edge functions + exact-division barycentrics per covered pixel
 # Phase 2 flops per covered pixel and plane; texidx: two interpolations,
 # two scales, the fold (4 per coordinate), then the row-major index (2) or
@@ -108,24 +111,46 @@ def soup(n, seed):
             "pos_idx": idx, "tex_idx": idx, "normal_idx": idx}
 
 
+def bbox_tests(setup, binned, g):
+    """(tiles,) i64: per tile, the (pixel, candidate) pairs whose pixel lies
+    in the candidate triangle's inclusive screen bbox.  No pixel outside it
+    can pass the exact integer inside test, so these are the phase 1 tests
+    the outputs need (the kernel walks every pixel of the tile)."""
+    records, tris, starts = binned
+    nt = starts.numel() - 1
+    dev = starts.device
+    tile = torch.repeat_interleave(torch.arange(nt, device=dev), torch.diff(starts).long())
+    slot = torch.arange(int(starts[0]), int(starts[-1]), device=dev)
+    tri = (tris[slot] if tris is not None else records[slot, 12]).long()
+
+    def span(lo, hi, t, size):
+        return (torch.minimum(hi[tri], (t + 1) * size - 1) - torch.maximum(lo[tri], t * size) + 1).clamp(min=0)
+
+    px = (span(setup["x0"], setup["x1"], tile % g["tiles_x"], g["tile_w"])
+          * span(setup["y0"], setup["y1"], tile // g["tiles_x"], g["tile_h"]))
+    return torch.zeros(nt, dtype=torch.int64, device=dev).index_add_(0, tile, px.long())
+
+
 def bound(passes, out_bytes, planes=(), covered=0):
-    """(bound_ms, bound_by) of a raster launch: phase 1 flops over every
-    (pixel, candidate) of each pass's tiles, phase 2 flops per covered
-    pixel, against the bytes of the record rows read (13 lanes, plus the
-    plane lanes), the id list, the tile offsets and the outputs."""
+    """(bound_ms, bound_by, flops, bytes) of a raster launch: phase 1 flops over the
+    (pixel, candidate) pairs inside the candidates' bboxes, phase 2 flops per
+    covered pixel, against the bytes of the record rows read (13 lanes, plus
+    the plane lanes), the id list, the tile offsets and the outputs."""
+    from tiny_renderer_tpu_torch.ops.raster_cuda import PLANE_LANES
+
     ops, nbytes = 0, out_bytes
-    for records, tris, starts, tile_px in passes:
+    for records, tris, starts, tests in passes:
         n_inc = int(starts[-1] - starts[0])
-        ops += n_inc * tile_px * OPS_PER_CANDIDATE
+        ops += tests * OPS_PER_CANDIDATE
         rows = records.shape[0] if tris is not None else n_inc
-        lanes = max([13] + [lane + {"texidx": 6, "const": 1}.get(m, 3) for m, lane, *_ in planes])
+        lanes = max([13] + [lane + PLANE_LANES[m] for m, lane, *_ in planes])
         nbytes += rows * lanes * 4 + starts.numel() * 4 + (n_inc * 4 if tris is not None else 0)
     for mode, _lane, _p, _w, _h, swz in planes:
         extra = (OPS_SWIZZLE if swz else OPS_ROW_MAJOR) if mode == "texidx" else 0
         ops += covered * (OPS_PER_PLANE[mode] + extra)
     ops += covered * OPS_PHASE2_BASE if planes else 0
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
 
 
 def main() -> int:
@@ -168,14 +193,16 @@ def main() -> int:
     specs["planes-const"] = CONST_SPEC
 
     def passes(geom_np, bcfg=cfg, spec=()):
-        """Binned light pass and camera pass of a scene at the view."""
+        """Binned light pass and camera pass of a scene at the view, and the
+        setup of each ("setup")."""
         g = {k: to_tensor(v, dev) for k, v in geom_np.items()}
         u1 = ml.shadow_pass_1_prepare(bcfg, view[0], view[2], view[3])
         u2 = ml.shadow_pass_2_prepare(bcfg, *view)
         s1 = triangle_setup(g, u1, bcfg, matrix_key="shadow_matrix", cull=False,
                             needs=("vertex_intensity", "darboux"))
         s2 = triangle_setup(g, u2, bcfg, needs=("vertex_intensity", "darboux"))
-        return {"light": bin_triangles(s1, bcfg, spec)[:3], "camera": bin_triangles(s2, bcfg, spec)[:3]}
+        return {"light": bin_triangles(s1, bcfg, spec)[:3], "camera": bin_triangles(s2, bcfg, spec)[:3],
+                "setup": {"light": s1, "camera": s2}}
 
     # -- 3. kernels against twins ---------------------------------------------
     m = model.mesh
@@ -192,6 +219,13 @@ def main() -> int:
     wide_cfg = dataclasses.replace(cfg, tile_h=8, tile_w=384)  # SL 24: no shuffle-only path
     wide_grid = dict(tile_h=wide_cfg.tile_h, tile_w=wide_cfg.tile_w, tiles_y=wide_cfg.tiles_y,
                      tiles_x=wide_cfg.tiles_x)
+    # The all-on knob config's launches: gathered light pass z-only, and the
+    # camera pass gathered + int16 + strips + planes, on 16x128 tiles.
+    allon_cfg = RenderConfig(**KNOBS["all-on"][0]).resolve("shadow")
+    allon_grid = dict(tile_h=allon_cfg.tile_h, tile_w=allon_cfg.tile_w, tiles_y=allon_cfg.tiles_y,
+                      tiles_x=allon_cfg.tiles_x)
+    allon_spec = kernel_varying_spec("shadow", tex, tile=allon_cfg.tex_tile)
+    allon_cam = dict(emit_z=False, spec=allon_spec, emit_strips=allon_cfg.strip_len, idx_dtype="int16")
     err = {k: 0.0 for k in ("depth", "gathered", "int16", "strips", "planes", "fused")}
     n_cmp, covered = 0, {}
 
@@ -233,6 +267,10 @@ def main() -> int:
             sp = passes(geom_np, cfg, spec)
             for pname in ("light", "camera"):
                 k1("planes", f"{cname}/{pname}/{sname}", sp[pname], emit_z=False, spec=spec)
+        k1("gathered", f"{cname}/light/all-on", passes(geom_np, allon_cfg)["light"], allon_grid,
+           emit_idx=False)
+        k1("planes", f"{cname}/camera/all-on", passes(geom_np, allon_cfg, allon_spec)["camera"],
+           allon_grid, **allon_cam)
         for label, p in (("indirect", base), ("gathered", gath)):
             got = raster_cuda.rasterize_fused(*p["light"], *p["camera"], **grid)
             torch.cuda.synchronize()
@@ -357,13 +395,19 @@ def main() -> int:
             lambda: raster_cuda.rasterize_reference(*b, **grid, **kw))
     cam = flag["camera"]
     per_tile = {p: torch.diff(flag[p][2]).cpu() for p in ("light", "camera")}
-    worst = int((per_tile["light"] + per_tile["camera"]).max())
+    tests = {p: bbox_tests(flag["setup"][p], flag[p], grid).cpu() for p in ("light", "camera")}
+    both_tile = per_tile["light"] + per_tile["camera"]
+    wt = int(both_tile.argmax())
+    worst, worst_tests = int(both_tile[wt]), int(tests["light"][wt] + tests["camera"][wt])
+    sm_ms = OPS_PER_CANDIDATE / (PEAK_FLOPS / 132) * 1e3  # one test at one SM's share of the peak
     phase("timing", "flagship binning: " + ", ".join(
         f"{p} pass {int(c.sum())} incidences on {int((c > 0).sum())} of {c.numel()} tiles "
-        f"(max {int(c.max())} per tile)" for p, c in per_tile.items())
-        + f"; both passes' worst tile {worst} candidates, whose walk alone needs "
-        f"{worst * tile_px * OPS_PER_CANDIDATE / (PEAK_FLOPS / 132) * 1e3:.4f} ms at one SM's "
-        "share of the fp32 peak (132 SMs)")
+        f"(max {int(c.max())} per tile), {int(tests[p].sum())} pixel tests inside the bboxes "
+        f"({float(tests[p].sum()) / int(c.sum()):.2f} per incidence; the kernel makes {tile_px})"
+        for p, c in per_tile.items())
+        + f"; both passes' worst tile (tile {wt}) {worst} candidates: its brute-force walk needs "
+        f"{worst * tile_px * sm_ms:.4f} ms at one SM's share of the fp32 peak (132 SMs), its "
+        f"{worst_tests} bbox pixel tests {worst_tests * sm_ms:.6f} ms")
     modes = {
         "gathered": (flag_g["camera"], dict(emit_z=False)),
         "int16": (cam, dict(emit_z=False, idx_dtype="int16")),
@@ -405,20 +449,28 @@ def main() -> int:
     hp, wp = cfg.padded_height, cfg.padded_width
     px = hp * wp
 
-    def pas(b, tp=tile_px):
-        return (b[0], b[1], b[2], tp)
+    def pas(b, p):
+        """A pass for bound(); every layout and spec bins the same incidences."""
+        return (b[0], b[1], b[2], int(tests[p].sum()))
 
     cam_cov = int((raster_cuda.rasterize(*flag_p["camera"], **grid, emit_z=False)[1] >= 0).sum())
     planes16 = raster_cuda._plane_layout(spec16)
-    both = [pas(flag["light"]), pas(cam)]
+    both = [pas(flag["light"], "light"), pas(cam, "camera")]
+    cam_only = [pas(cam, "camera")]
     bounds = {
+        "light z": bound([pas(flag["light"], "light")], px * 4),
+        "camera idx": bound(cam_only, px * 4),
+        "camera z+idx": bound(cam_only, px * 8),
         "depth": bound(both, px * 8),
-        "gathered": bound([pas(flag_g["camera"])], px * 4),
-        "int16": bound([pas(cam)], px * 2),
-        "strips": bound([pas(cam)], px * 4 + px // 16 * 4),
-        "planes": bound([pas(flag_p["camera"])], px * 4 + len(planes16) * px * 4, planes16, cam_cov),
+        "gathered": bound([pas(flag_g["camera"], "camera")], px * 4),
+        "int16": bound(cam_only, px * 2),
+        "strips": bound(cam_only, px * 4 + px // 16 * 4),
+        "planes": bound([pas(flag_p["camera"], "camera")], px * 4 + len(planes16) * px * 4, planes16,
+                        cam_cov),
         "fused": bound(both, px * 8),
     }
+    phase("timing", "bounds: " + ", ".join(
+        f"{k} {v[0]:.6f} ms by {v[1]} ({v[2]} flops, {v[3]} bytes)" for k, v in bounds.items()))
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
     rp = "tiny_renderer_tpu/ops/raster_pallas.py"
     entries = [

@@ -67,17 +67,23 @@
 // mul+add is contracted into an FMA, so the kernels equal their eager torch
 // twins (raster_cuda.rasterize_reference) bit for bit on the card.
 //
-// What bounds the walk on this card.  Per-pixel ALU work over the record
-// stream: 26 flops per (pixel, candidate) for every pixel of the tile, for
-// each of the tile's incidences; the records are a few hundred KB read from
-// L2, the outputs one write per pixel.  The design keeps the per-pixel state
+// What bounds the walk on this card.  The function's own work is bound by
+// bytes: one write per pixel of each output and a few hundred KB of records.
+// Its operations are 26 flops per (pixel, candidate) only for the pixels
+// inside the candidate's bbox (no other pixel can pass the integer inside
+// test): ~70 of a 32x128 tile's 4096 pixels per incidence at 800^2.  This
+// kernel walks every pixel of the tile for every candidate, as the TPU
+// kernel does, so it makes ~60x the tests the outputs need, and its
+// operations come to ~10x the time of its bytes; that brute-force walk is
+// its first loss against the bound.  The design keeps the per-pixel state
 // in registers (16 pixels per thread), stages the records through shared
 // memory in chunks so a block reads each record once from L2 and all
 // threads read it as a shared-memory broadcast, and has no per-candidate
-// global traffic.  What it does not do yet (later work): 800x800 makes only
-// 175 blocks for 132 SMs, the longest tile's list sets the time, there is no
-// cp.async/TMA double buffering of the record chunks, and the tile shape is
-// the TPU's.
+// global traffic.  What it does not do yet (later work): skip the pixels
+// outside a candidate's bbox, spread the busy tiles' lists over more than
+// one block (800x800 makes only 175 blocks for 132 SMs, and the longest
+// tile's list sets the time), cp.async/TMA double buffering of the record
+// chunks, and a tile shape of its own (this one is the TPU's).
 
 #include <cuda_runtime.h>
 

@@ -48,6 +48,8 @@ NVCC_FLAGS = (
 _MAX_THREADS = 1024
 MAX_PLANES = 16  # varying planes one K1 launch emits (the plane table is a kernel argument)
 _PLANE_MODES = {"interp": 0, "const": 1, "zfrag": 2, "texidx": 3}
+# Record lanes one output plane of each mode reads from its first lane.
+PLANE_LANES = {"interp": 3, "zfrag": 3, "const": 1, "texidx": 6}
 _REF_CHUNK_ELEMS = 1 << 23  # twin: (tiles x slots x pixels) elements per step
 
 
@@ -122,16 +124,13 @@ def _plane_layout(spec):
             parts = mode.split(":")
             tile = int(parts[3]) if len(parts) > 3 else 0
             planes.append(("texidx", lane, p, int(parts[1]), int(parts[2]), tile))
-            lane += 6
+            lane += PLANE_LANES["texidx"]
             p += 1
             continue
         for _ in range(comps):
-            if mode == "interp":
-                planes.append(("interp", lane, p, 0, 0, 0))
-                lane += 3
-            elif mode == "const":
-                planes.append(("const", lane, p, 0, 0, 0))
-                lane += 1
+            if mode in ("interp", "const"):
+                planes.append((mode, lane, p, 0, 0, 0))
+                lane += PLANE_LANES[mode]
             elif mode == "zfrag":
                 planes.append(("zfrag", 9, p, 0, 0, 0))
             else:
@@ -147,8 +146,7 @@ def _check_modes(records, planes, tile_w, emit_strips, idx_dtype, emit_idx, emit
         raise ValueError(f"emit_strips={emit_strips} must divide tile_w={tile_w}")
     if not (emit_z or emit_idx or emit_strips or planes):
         raise ValueError("the raster must emit z, idx or both")
-    width = {"interp": 3, "zfrag": 3, "const": 1, "texidx": 6}
-    used = max((lane + width[m] for m, lane, *_ in planes), default=BASE_LANES)
+    used = max((lane + PLANE_LANES[m] for m, lane, *_ in planes), default=BASE_LANES)
     if used > records.shape[1]:
         raise ValueError(f"the varying spec reads {used} record lanes, records have {records.shape[1]}")
 

@@ -56,9 +56,6 @@ PIPELINES = {
     ),
 }
 
-# Texture maps each pipeline samples (word-packed together).
-_PIPELINE_MAPS = shaders._PIPELINE_MAPS_FOR_SPEC
-
 # Vertex-attribute keys the shade gathers per fragment for compute_varyings.
 _GATHER_KEYS = {"shadow": ("uv", "intensity", "zv")}
 
@@ -304,7 +301,7 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
 def _pk_needed(textures, pipeline, tile=0):
     """True when the pipeline's packed plane is absent or stored in another
     layout than `tile` requests."""
-    names = _PIPELINE_MAPS[pipeline]
+    names = shaders.PIPELINE_MAPS[pipeline]
     if not names:
         return False
     dims = {tuple(textures[n].shape[:2]) for n in names}
@@ -319,7 +316,7 @@ def _pk_needed(textures, pipeline, tile=0):
 def prepack_textures(textures, pipeline, tile=0):
     """Pack the pipeline's texture plane once (e.g. at Scene construction);
     `tile` must match the render config's tex_tile."""
-    return shaders.pack_textures(textures, _PIPELINE_MAPS[pipeline], tile=tile)
+    return shaders.pack_textures(textures, shaders.PIPELINE_MAPS[pipeline], tile=tile)
 
 
 def render_frame(geom, textures, light_direction, look_from, look_at, up, *,

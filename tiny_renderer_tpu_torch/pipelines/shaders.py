@@ -38,7 +38,7 @@ _INTERP_SOURCES = {
 _CONST_SOURCES = {"row0": "row0n", "row1": "row1n", "du": "du", "dv": "dv"}
 
 # Texture maps each pipeline samples (word-packed together).
-_PIPELINE_MAPS_FOR_SPEC = {"shadow": ("texture",)}
+PIPELINE_MAPS = {"shadow": ("texture",)}
 
 
 def num_planes(spec) -> int:
@@ -56,7 +56,7 @@ def kernel_varying_spec(pipeline, textures, tile: int = 0):
     darboux's per-triangle constants; they arrive with that pipeline.)
     """
     spec = VARYING_SPECS[pipeline]
-    names = _PIPELINE_MAPS_FOR_SPEC.get(pipeline, ())
+    names = PIPELINE_MAPS.get(pipeline, ())
     if not names:
         return spec
     dims = {tuple(textures[n].shape[:2]) for n in names}
