@@ -9,10 +9,14 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 2. build   — compile the raster kernels (csrc/raster.cu) with nvcc for sm_90a
              and print ptxas's registers/spills for every instantiation.
 3. kernel  — every kernel mode against its plain torch twin on seeded random
-             soups, the depth tie case and the flagship scene's two passes,
-             bit-identical: K1 phase 1 (z, idx, z+idx), the gathered record
-             layout, the int16 index target, the strip plane (SL 16, and 64
-             and 24 through the shared-memory combine), phase 2 with
+             soups, the depth tie case, the flagship scene's two passes and
+             five adversarial screen-space scenes (large and huge triangles,
+             one-pixel triangles and slivers on rect, sub-tile and bin-tile
+             borders, a hot bin tile of 2,000 triangles, exact z ties across
+             borders, -0.0 against +0.0 depths), bit-identical (float
+             outputs compared as bits): K1 phase 1 (z, idx, z+idx), the
+             gathered record layout, the int16 index target, the strip plane
+             (SL 16, and 64 and 24 across sub-tile borders), phase 2 with
              shadow's kernel spec (tex_tile 0 and 16) and with a spec of
              const and interp planes, K2 (both passes in one launch), and
              the all-on knob config's two launches on its 16x128 tiles
@@ -29,10 +33,12 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              the default burst, with the launches each config implies;
              compact_shade=False also through Scene.render (z, frame, shadow
              equal to the default Scene.render).
-6. timing  — kernel and twin ms per launch per mode at the flagship shapes,
-             and burst ms per frame of each knob config beside the default
-             (CUDA events / host clock after warm-up, configs in turns),
-             beside the card's name and power limit.
+6. timing  — kernel and twin ms per launch per mode at the flagship shapes
+             (the kernel's device time with the launch queue held full, and
+             its time paced by the host), beside PR 2's times; the cull's
+             work per block; burst ms per frame of each knob config beside
+             the default (CUDA events / host clock after warm-up, configs in
+             turns), beside the card's name and power limit.
 
 Launch counts are set to 0 just before each path is driven and read just
 after.  Prints a JSON line of kernel results (time, launches, error, and the
@@ -88,6 +94,10 @@ OPS_PHASE2_BASE = 16  # edge functions + exact-division barycentrics per covered
 # the tile swizzle (14).
 OPS_PER_PLANE = {"interp": 5, "zfrag": 5, "const": 0, "texidx": 20}
 OPS_ROW_MAJOR, OPS_SWIZZLE = 2, 14
+# Kernel ms per launch before the walk's redesign, for comparison.
+PR2_LABEL = "PR 2's chip run 4 on NVIDIA H100 80GB HBM3 at 700 W"
+PR2_MS = {"light/z": 0.2834, "camera/idx": 0.1425, "camera/z+idx": 0.1426, "gathered": 0.1412,
+          "int16": 0.1428, "strips": 0.1456, "planes": 0.1803, "fused": 0.4284}
 
 
 def phase(name, msg):
@@ -111,24 +121,52 @@ def soup(n, seed):
             "pos_idx": idx, "tex_idx": idx, "normal_idx": idx}
 
 
-def bbox_tests(setup, binned, g):
-    """(tiles,) i64: per tile, the (pixel, candidate) pairs whose pixel lies
-    in the candidate triangle's inclusive screen bbox.  No pixel outside it
-    can pass the exact integer inside test, so these are the phase 1 tests
-    the outputs need (the kernel walks every pixel of the tile)."""
+def signed_zero(binned):
+    """The binned pass with every record's depth lanes 9-11 set to -0.0 or
+    +0.0: in pair k = tri // 2, the first triangle gets -0.0 and the second
+    +0.0 when k is even, the other way round when k is odd."""
     records, tris, starts = binned
-    nt = starts.numel() - 1
-    dev = starts.device
-    tile = torch.repeat_interleave(torch.arange(nt, device=dev), torch.diff(starts).long())
+    tri = records[:, 12].long()
+    neg = (tri % 2 == 0) == (tri // 2 % 2 == 0)
+    records = records.clone()
+    records[:, 9:12] = torch.where(neg, -0.0, 0.0)[:, None]
+    return records, tris, starts
+
+
+def block_work(setup, binned, g):
+    """Per kernel block (tile-major, the tile's sub-tiles row-major): the
+    candidates its walk stages (its bin tile's list), those that pass its
+    sub-tile cull, the pixel tests it makes (32 per 4x8 step the cull
+    leaves, raster_cuda.cull_masks), and the (pixel, candidate) pairs
+    inside the candidates' inclusive screen bboxes.  No pixel outside the
+    bbox can pass the exact integer inside test, so the last are the phase 1
+    tests the outputs need."""
+    from tiny_renderer_tpu_torch.ops.raster_cuda import SUBTILE, cull_masks
+
+    records, tris, starts = binned
+    tile, masks = cull_masks(records, tris, starts, **g)
+    dev, nb = starts.device, masks.shape[1]
+    (sub_h, sub_w), nbx = SUBTILE, g["tile_w"] // SUBTILE[1]
+    b = torch.arange(nb, device=dev)
+    key = (tile[:, None] * nb + b).reshape(-1)
+
+    def per_block(v):
+        out = torch.zeros((starts.numel() - 1) * nb, dtype=torch.int64, device=dev)
+        return out.index_add_(0, key, v.reshape(-1).long())
+
     slot = torch.arange(int(starts[0]), int(starts[-1]), device=dev)
     tri = (tris[slot] if tris is not None else records[slot, 12]).long()
 
-    def span(lo, hi, t, size):
-        return (torch.minimum(hi[tri], (t + 1) * size - 1) - torch.maximum(lo[tri], t * size) + 1).clamp(min=0)
+    def span(lo, hi, origin, size):
+        return (torch.minimum(hi[tri][:, None], origin + size - 1)
+                - torch.maximum(lo[tri][:, None], origin) + 1).clamp(min=0)
 
-    px = (span(setup["x0"], setup["x1"], tile % g["tiles_x"], g["tile_w"])
-          * span(setup["y0"], setup["y1"], tile // g["tiles_x"], g["tile_h"]))
-    return torch.zeros(nt, dtype=torch.int64, device=dev).index_add_(0, tile, px.long())
+    x0 = (tile % g["tiles_x"] * g["tile_w"])[:, None] + b % nbx * sub_w
+    y0 = (tile // g["tiles_x"] * g["tile_h"])[:, None] + b // nbx * sub_h
+    inbox = span(setup["x0"], setup["x1"], x0, sub_w) * span(setup["y0"], setup["y1"], y0, sub_h)
+    return {"candidates": torch.diff(starts).long().repeat_interleave(nb),
+            "survivors": per_block(masks.any(-1)), "tests": 32 * per_block(masks.sum(-1)),
+            "bbox": per_block(inbox)}
 
 
 def bound(passes, out_bytes, planes=(), covered=0):
@@ -160,6 +198,7 @@ def main() -> int:
     from tiny_renderer_tpu_torch import RenderConfig, Scene
     from tiny_renderer_tpu_torch.app import flagship_model
     from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.models.stress import adversarial, screen_scene
     from tiny_renderer_tpu_torch.ops import mathlib as ml
     from tiny_renderer_tpu_torch.ops import raster_cuda
     from tiny_renderer_tpu_torch.ops.binning import bin_triangles
@@ -192,17 +231,33 @@ def main() -> int:
     specs = {f"planes-tex{t}": kernel_varying_spec("shadow", tex, tile=t) for t in (0, 16)}
     specs["planes-const"] = CONST_SPEC
 
-    def passes(geom_np, bcfg=cfg, spec=()):
-        """Binned light pass and camera pass of a scene at the view, and the
-        setup of each ("setup")."""
+    eye = torch.eye(4, device=dev)
+
+    def screen_uniforms(m):
+        return {"vpmv": m, "m": eye, "it_m": eye,
+                "t_light_direction": torch.tensor([0.0, 0.6, 0.8], device=dev)}
+
+    def passes(geom_np, bcfg=cfg, spec=(), kind="view"):
+        """Binned light pass and camera pass of a scene, and the setup of
+        each ("setup").  kind "view": at the view; "screen": a screen-space
+        scene, the camera pass as given and the light pass transposed (x and
+        y swapped, every winding flipped); "signed0": a screen-space scene
+        through signed_zero."""
         g = {k: to_tensor(v, dev) for k, v in geom_np.items()}
-        u1 = ml.shadow_pass_1_prepare(bcfg, view[0], view[2], view[3])
-        u2 = ml.shadow_pass_2_prepare(bcfg, *view)
-        s1 = triangle_setup(g, u1, bcfg, matrix_key="shadow_matrix", cull=False,
-                            needs=("vertex_intensity", "darboux"))
-        s2 = triangle_setup(g, u2, bcfg, needs=("vertex_intensity", "darboux"))
-        return {"light": bin_triangles(s1, bcfg, spec)[:3], "camera": bin_triangles(s2, bcfg, spec)[:3],
-                "setup": {"light": s1, "camera": s2}}
+        needs = ("vertex_intensity", "darboux")
+        if kind == "view":
+            u1 = ml.shadow_pass_1_prepare(bcfg, view[0], view[2], view[3])
+            u2 = ml.shadow_pass_2_prepare(bcfg, *view)
+            s1 = triangle_setup(g, u1, bcfg, matrix_key="shadow_matrix", cull=False, needs=needs)
+            s2 = triangle_setup(g, u2, bcfg, needs=needs)
+        else:
+            s1 = triangle_setup(g, screen_uniforms(eye[[1, 0, 2, 3]]), bcfg, cull=False, needs=needs)
+            s2 = triangle_setup(g, screen_uniforms(eye), bcfg, cull=False, needs=needs)
+        out = {"light": bin_triangles(s1, bcfg, spec)[:3], "camera": bin_triangles(s2, bcfg, spec)[:3],
+               "setup": {"light": s1, "camera": s2}}
+        if kind == "signed0":
+            out["light"], out["camera"] = signed_zero(out["light"]), signed_zero(out["camera"])
+        return out
 
     # -- 3. kernels against twins ---------------------------------------------
     m = model.mesh
@@ -212,9 +267,11 @@ def main() -> int:
     # chunk of records): index 0 must win every pixel.
     tie = soup(300, 0)
     tie["positions"] = np.tile(np.float32([[-0.3, -0.3, 0], [0.3, -0.3, 0], [-0.3, 0.3, 0]]), (300, 1))
-    cases = {f"soup{s}": soup(3000, s) for s in range(3)}
-    cases["tie"] = tie
-    cases["flagship"] = flag_geom
+    cases = {f"soup{s}": (soup(3000, s), "view") for s in range(3)}
+    cases["tie"] = (tie, "view")
+    cases["flagship"] = (flag_geom, "view")
+    for name, tris in adversarial(cfg.width, cfg.height).items():
+        cases[name] = (screen_scene(tris, 1), "signed0" if name == "signed0" else "screen")
     gathered_cfg = dataclasses.replace(cfg, csr_indirect=False)
     wide_cfg = dataclasses.replace(cfg, tile_h=8, tile_w=384)  # SL 24: no shuffle-only path
     wide_grid = dict(tile_h=wide_cfg.tile_h, tile_w=wide_cfg.tile_w, tiles_y=wide_cfg.tiles_y,
@@ -237,7 +294,9 @@ def main() -> int:
                 continue
             check(a.dtype == b.dtype and a.shape == b.shape, f"{label}: {a.dtype}{tuple(a.shape)} "
                   f"vs twin {b.dtype}{tuple(b.shape)}")
-            check(torch.equal(a, b), f"{label}: differs from the twin")
+            same = (torch.equal(a.view(torch.int32), b.view(torch.int32)) if a.dtype == torch.float32
+                    else torch.equal(a, b))
+            check(same, f"{label}: differs from the twin")
             err[kind_] = max(err[kind_], float((a.double() - b.double()).abs().max()))
         n_cmp += 1
 
@@ -247,29 +306,32 @@ def main() -> int:
         compare(kind_, label, got, raster_cuda.rasterize_reference(*binned, **g, **kw))
         return got
 
-    for cname, geom_np in cases.items():
-        base = passes(geom_np)
-        gath = passes(geom_np, gathered_cfg)
+    for cname, (geom_np, scene_kind) in cases.items():
+        def passes_of(bcfg=cfg, spec=()):
+            return passes(geom_np, bcfg, spec, scene_kind)
+
+        base = passes_of()
+        gath = passes_of(gathered_cfg)
         for pname in ("light", "camera"):
             for mode, kw in MODES.items():
                 out = k1("depth", f"{cname}/{pname}/{mode}", base[pname], **kw)
                 if out[1] is not None:
                     covered[f"{cname}/{pname}"] = int((out[1] >= 0).sum())
             k1("gathered", f"{cname}/{pname}/gathered", gath[pname])
-            k1("gathered", f"{cname}/{pname}/gathered+planes", passes(geom_np, gathered_cfg,
+            k1("gathered", f"{cname}/{pname}/gathered+planes", passes_of(gathered_cfg,
                specs["planes-tex16"])[pname], emit_z=False, spec=specs["planes-tex16"])
             k1("int16", f"{cname}/{pname}/int16", base[pname], emit_z=False, idx_dtype="int16")
             for sl in (16, 64):
                 k1("strips", f"{cname}/{pname}/strips{sl}", base[pname], emit_z=False, emit_strips=sl)
-        k1("strips", f"{cname}/camera/strips24@384", passes(geom_np, wide_cfg)["camera"],
+        k1("strips", f"{cname}/camera/strips24@384", passes_of(wide_cfg)["camera"],
            wide_grid, emit_z=False, emit_strips=24)
         for sname, spec in specs.items():
-            sp = passes(geom_np, cfg, spec)
+            sp = passes_of(cfg, spec)
             for pname in ("light", "camera"):
                 k1("planes", f"{cname}/{pname}/{sname}", sp[pname], emit_z=False, spec=spec)
-        k1("gathered", f"{cname}/light/all-on", passes(geom_np, allon_cfg)["light"], allon_grid,
+        k1("gathered", f"{cname}/light/all-on", passes_of(allon_cfg)["light"], allon_grid,
            emit_idx=False)
-        k1("planes", f"{cname}/camera/all-on", passes(geom_np, allon_cfg, allon_spec)["camera"],
+        k1("planes", f"{cname}/camera/all-on", passes_of(allon_cfg, allon_spec)["camera"],
            allon_grid, **allon_cam)
         for label, p in (("indirect", base), ("gathered", gath)):
             got = raster_cuda.rasterize_fused(*p["light"], *p["camera"], **grid)
@@ -280,6 +342,13 @@ def main() -> int:
             idx = raster_cuda.rasterize(*base["camera"], **grid)[1]
             check(bool((idx[idx >= 0] == 0).all()) and bool((idx >= 0).any()),
                   "tie case: triangle 0 must win every covered pixel")
+        if cname == "signed0":
+            z, idx = raster_cuda.rasterize(*base["camera"], **grid)[:2]
+            won = idx >= 0
+            check(bool((idx[won] % 2 == 0).all()), "signed-zero case: the first of each pair must win")
+            signs = torch.signbit(z[won])
+            check(bool(signs.any()) and bool((~signs).any()),
+                  "signed-zero case: both signs of zero must be stored")
     phase("kernel", f"{n_cmp} kernel/twin comparisons bit-identical (tolerance: exact), "
           f"max_abs_err {err}; covered px {covered}")
 
@@ -366,11 +435,22 @@ def main() -> int:
         phase("knobs", msg)
 
     # -- 6. timing ------------------------------------------------------------
-    def time_launches(fn, n):
+    def time_launches(fn, n, hold=True):
+        """ms per call of fn over n calls, by CUDA events after warm-up.
+        hold: the device sleeps while the calls are queued (twice the time
+        the host took to queue them, at up to 2 GHz), so that the events
+        time the device's work and not the host's pace."""
         for _ in range(2):
             fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         torch.cuda.synchronize()
+        if hold:
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            queued = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            torch.cuda._sleep(int(2 * queued * 2e9))
         start.record()
         for _ in range(n):
             fn()
@@ -378,9 +458,11 @@ def main() -> int:
         torch.cuda.synchronize()
         return start.elapsed_time(end) / n
 
-    def timed(label, kernel, twin):
-        ms = (time_launches(kernel, 200), time_launches(twin, 5))
-        phase("timing", f"{label}: kernel {ms[0]:.4f} ms, twin {ms[1]:.4f} ms per launch  [{smi}]")
+    def timed(key, label, kernel, twin):
+        ms = (time_launches(kernel, 200), time_launches(twin, 5, hold=False))
+        paced = time_launches(kernel, 200, hold=False)
+        phase("timing", f"{label}: kernel {ms[0]:.4f} ms per launch on the device ({paced:.4f} paced by "
+              f"the host; {PR2_MS[key]:.4f} in {PR2_LABEL}), twin {ms[1]:.4f} ms  [{smi}]")
         return ms
 
     flag = passes(flag_geom)
@@ -391,23 +473,31 @@ def main() -> int:
     for pname, mode in (("light", "z"), ("camera", "idx"), ("camera", "z+idx")):
         b, kw = flag[pname], MODES[mode]
         ms[f"{pname}/{mode}"] = timed(
-            f"{pname} pass {mode}", lambda: raster_cuda.rasterize(*b, **grid, **kw),
+            f"{pname}/{mode}", f"{pname} pass {mode}", lambda: raster_cuda.rasterize(*b, **grid, **kw),
             lambda: raster_cuda.rasterize_reference(*b, **grid, **kw))
     cam = flag["camera"]
     per_tile = {p: torch.diff(flag[p][2]).cpu() for p in ("light", "camera")}
-    tests = {p: bbox_tests(flag["setup"][p], flag[p], grid).cpu() for p in ("light", "camera")}
-    both_tile = per_tile["light"] + per_tile["camera"]
-    wt = int(both_tile.argmax())
-    worst, worst_tests = int(both_tile[wt]), int(tests["light"][wt] + tests["camera"][wt])
+    work = {p: {k: v.cpu() for k, v in block_work(flag["setup"][p], flag[p], grid).items()}
+            for p in ("light", "camera")}
+    tests = {p: int(w["bbox"].sum()) for p, w in work.items()}
+    both = {k: work["light"][k] + work["camera"][k] for k in work["light"]}
+    wb = int(both["tests"].argmax())  # K2's slowest block walks both passes
+    nb = both["tests"].numel() // cfg.num_tiles
+    n_blocks = cfg.padded_width // raster_cuda.SUBTILE[1] * (cfg.padded_height // raster_cuda.SUBTILE[0])
     sm_ms = OPS_PER_CANDIDATE / (PEAK_FLOPS / 132) * 1e3  # one test at one SM's share of the peak
-    phase("timing", "flagship binning: " + ", ".join(
+    phase("timing", "flagship binning and the kernel's work: " + ", ".join(
         f"{p} pass {int(c.sum())} incidences on {int((c > 0).sum())} of {c.numel()} tiles "
-        f"(max {int(c.max())} per tile), {int(tests[p].sum())} pixel tests inside the bboxes "
-        f"({float(tests[p].sum()) / int(c.sum()):.2f} per incidence; the kernel makes {tile_px})"
-        for p, c in per_tile.items())
-        + f"; both passes' worst tile (tile {wt}) {worst} candidates: its brute-force walk needs "
-        f"{worst * tile_px * sm_ms:.4f} ms at one SM's share of the fp32 peak (132 SMs), its "
-        f"{worst_tests} bbox pixel tests {worst_tests * sm_ms:.6f} ms")
+        f"(max {int(c.max())} per tile), {tests[p]} pixel tests inside the bboxes "
+        f"({tests[p] / int(c.sum()):.2f} per incidence), the kernel makes {int(work[p]['tests'].sum())} "
+        f"({int(work[p]['tests'].sum()) / int(c.sum()):.2f} per incidence; the brute-force walk made "
+        f"{tile_px})" for p, c in per_tile.items())
+        + f"; {n_blocks} blocks of {raster_cuda.SUBTILE[0]}x{raster_cuda.SUBTILE[1]} launched, "
+        f"{int((both['survivors'] > 0).sum())} with a candidate left after their sub-tile cull; "
+        f"both passes' worst block (block {wb % nb} of tile {wb // nb}): "
+        f"{int(both['candidates'][wb])} candidates "
+        f"staged, {int(both['survivors'][wb])} past its sub-tile cull, {int(both['bbox'][wb])} bbox pixel "
+        f"tests, {int(both['tests'][wb])} pixel tests made, which need {int(both['tests'][wb]) * sm_ms:.6f} "
+        f"ms at one SM's share of the fp32 peak (132 SMs)")
     modes = {
         "gathered": (flag_g["camera"], dict(emit_z=False)),
         "int16": (cam, dict(emit_z=False, idx_dtype="int16")),
@@ -415,10 +505,10 @@ def main() -> int:
         "planes": (flag_p["camera"], dict(emit_z=False, spec=spec16)),
     }
     for name, (b, kw) in modes.items():
-        ms[name] = timed(f"camera pass {name} {kw}", lambda: raster_cuda.rasterize(*b, **grid, **kw),
+        ms[name] = timed(name, f"camera pass {name} {kw}", lambda: raster_cuda.rasterize(*b, **grid, **kw),
                          lambda: raster_cuda.rasterize_reference(*b, **grid, **kw))
     ms["fused"] = timed(
-        "fused light + camera pass",
+        "fused", "fused light + camera pass",
         lambda: raster_cuda.rasterize_fused(*flag["light"], *cam, **grid),
         lambda: raster_cuda.rasterize_fused_reference(*flag["light"], *cam, **grid))
 
@@ -451,7 +541,7 @@ def main() -> int:
 
     def pas(b, p):
         """A pass for bound(); every layout and spec bins the same incidences."""
-        return (b[0], b[1], b[2], int(tests[p].sum()))
+        return (b[0], b[1], b[2], tests[p])
 
     cam_cov = int((raster_cuda.rasterize(*flag_p["camera"], **grid, emit_z=False)[1] >= 0).sum())
     planes16 = raster_cuda._plane_layout(spec16)

@@ -23,6 +23,7 @@ from tiny_renderer_tpu.ops.binning import bin_triangles
 from tiny_renderer_tpu.ops.raster_pallas import rasterize_pallas, rasterize_pallas_fused
 from tiny_renderer_tpu.ops.vertex import triangle_setup
 from tiny_renderer_tpu_torch.convert import to_tensor
+from tiny_renderer_tpu_torch.models.stress import adversarial, screen_scene
 from tiny_renderer_tpu_torch.ops import raster_cuda
 
 CFG = RenderConfig(width=256, height=128)
@@ -272,3 +273,125 @@ def test_empty_tiles_clear():
     binned = _binned(_geom_from_triangles([[[5, 5, 0], [6, 5, 0], [5, 6, 0]]]))
     z, idx, _, _ = _twin(binned)
     assert (idx == -1).all() and (z == np.float32(-3.4028235e38)).all()
+
+
+# -- adversarial screen-space scenes (models.stress) ---------------------------
+
+ADVERSARIAL = adversarial(CFG.width, CFG.height, n_hot=500)
+_EYE = np.eye(4, dtype=np.float32)
+
+
+def _screen_binned(tris, cfg=CFG, spec=(), transpose=False):
+    """A screen-space scene set up through the identity (x and y swapped,
+    every winding flipped, with transpose), binned for cfg."""
+    u = {"vpmv": _EYE[[1, 0, 2, 3]] if transpose else _EYE, "m": _EYE, "it_m": _EYE,
+         "t_light_direction": np.float32([0.0, 0.6, 0.8])}
+    s = triangle_setup(screen_scene(tris, 1), u, cfg, cull=False,
+                       needs=("vertex_intensity",) if spec else (), xp=np)
+    records, tris, starts, _ = bin_triangles(s, cfg, spec)
+    return np.asarray(records), None if tris is None else np.asarray(tris), np.asarray(starts)
+
+
+@pytest.mark.parametrize("name", ["large", "borders", "hot", "ties"])
+def test_adversarial_depth_matches_pallas(name):
+    """Whole-tile and off-screen triangles, one-pixel triangles and slivers
+    on tile, sub-tile and rect borders, a hot bin tile of 500 triangles,
+    exact ties across borders: z and idx, the strip plane and the int16
+    target against the Pallas kernel."""
+    binned = _screen_binned(ADVERSARIAL[name])
+    tz, tidx, _, tstrips = _twin(binned, emit_strips=16)
+    pz, pidx, _, pstrips = _pallas(binned, emit_strips=16)
+    _assert_parity(tz.numpy(), tidx.numpy(), pz, pidx)
+    np.testing.assert_array_equal(tstrips.numpy(), pstrips)
+    _, idx16, _, _ = _twin(binned, emit_z=False, idx_dtype="int16")
+    np.testing.assert_array_equal(idx16.numpy(), tidx.numpy())
+
+
+@pytest.mark.parametrize("name", ["large", "borders", "hot", "ties"])
+def test_adversarial_planes_and_fused_match_pallas(name):
+    """Phase 2 at the adversarial scenes' winners, in the gathered layout,
+    and K2 with the scene's transposed light pass."""
+    gcfg = dataclasses.replace(CFG, csr_indirect=False)
+    binned = _screen_binned(ADVERSARIAL[name], gcfg, spec=SHADOW_SPEC)
+    _, tidx, tv, _ = _twin(binned, gcfg, emit_z=False, spec=SHADOW_SPEC)
+    _, pidx, pv, _ = _pallas(binned, gcfg, emit_z=False, spec=SHADOW_SPEC)
+    tidx, tv = tidx.numpy(), tv.numpy()
+    _assert_winners(tidx, pidx)
+    agree = (tidx == pidx) & (tidx >= 0)
+    assert (tv[:, tidx < 0] == 0).all()
+    for mode, _lane, p, *_ in raster_cuda._plane_layout(SHADOW_SPEC):
+        a, b = tv[p][agree], pv[p][agree]
+        if mode == "texidx":
+            assert (a != b).mean() < 0.002
+        else:
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-4)
+    light = _screen_binned(ADVERSARIAL[name], transpose=True)
+    camera = _screen_binned(ADVERSARIAL[name])
+    sz, idx = raster_cuda.rasterize_fused(*_tensors(light), *_tensors(camera), **_grid(CFG))
+    pz, pidx = rasterize_pallas_fused(light[0], light[2], light[1], camera[0], camera[2], camera[1],
+                                      **_grid(CFG), interpret=True)
+    pz, pidx = np.asarray(pz), np.asarray(pidx)
+    np.testing.assert_array_equal(sz.numpy() > -1e38, pz > -1e38)
+    lit = pz > -1e38
+    np.testing.assert_allclose(sz.numpy()[lit], pz[lit], rtol=1e-5, atol=1e-4)
+    _assert_winners(idx.numpy(), pidx)
+
+
+@pytest.mark.parametrize("one_slot_chunks", [False, True])
+@pytest.mark.parametrize("neg_first", [True, False])
+def test_signed_zero_tie_first_wins(neg_first, one_slot_chunks, monkeypatch):
+    """-0.0 against +0.0: two equal triangles whose depth lanes are -0.0 on
+    one and +0.0 on the other (records built directly).  The zeros compare
+    equal, so the first in slot order wins, and its z is stored with its
+    sign, as the Pallas kernel's serial strict `>` stores it."""
+    if one_slot_chunks:
+        monkeypatch.setattr(raster_cuda, "_REF_CHUNK_ELEMS", 1)
+    tri = [[-0.5, -0.5, 0.0], [0.5, -0.5, 0.0], [-0.5, 0.5, 0.0]]
+    records, tris, starts = _binned(_geom_from_triangles([tri, tri]))
+    records = records.copy()
+    records[:, 9:12] = np.float32([[-0.0], [0.0]] if neg_first else [[0.0], [-0.0]])
+    tz, tidx, _, _ = _twin((records, tris, starts))
+    pz, pidx, _, _ = _pallas((records, tris, starts))
+    tz, tidx = tz.numpy(), tidx.numpy()
+    covered = pidx >= 0
+    assert covered.sum() > 100
+    np.testing.assert_array_equal(tidx, pidx)
+    assert (tidx[covered] == 0).all()
+    np.testing.assert_array_equal(np.signbit(tz), np.signbit(pz))
+    assert np.signbit(tz[covered]).mean() == (1.0 if neg_first else 0.0)
+
+
+@pytest.mark.parametrize("name", sorted(ADVERSARIAL) + ["random"])
+def test_cull_drops_only_rects_no_pixel_passes(name):
+    """raster_cuda.cull_masks (the kernel's cull): a 4x8 rect of a sub-tile
+    is left out of a candidate's walk only if none of its pixels passes the
+    candidate's inside test, evaluated as the walk evaluates it; and the
+    cull leaves out most rects."""
+    binned = _binned(_random_scene(200, 0)) if name == "random" else _screen_binned(ADVERSARIAL[name])
+    records, tris, starts = _tensors(binned)
+    g = _grid(CFG)
+    tile, masks = raster_cuda.cull_masks(records, tris, starts, **g)
+    slot = torch.arange(int(starts[0]), int(starts[-1]))
+    rec = records[tris[slot].long()]
+    sub_h, sub_w = raster_cuda.SUBTILE
+    nbx = CFG.tile_w // sub_w
+    b = torch.arange(masks.shape[1])
+    cols, rows = raster_cuda.rect_offsets()
+    assert sorted(zip(rows.tolist(), cols.tolist())) == [
+        (y, x) for y in range(0, sub_h, 4) for x in range(0, sub_w, 8)]  # each rect once
+    x0 = (tile % CFG.tiles_x * CFG.tile_w)[:, None, None] + (b % nbx * sub_w)[:, None] + cols
+    y0 = (tile // CFG.tiles_x * CFG.tile_h)[:, None, None] + (b // nbx * sub_h)[:, None] + rows
+    ry, rx = torch.meshgrid(torch.arange(4), torch.arange(8), indexing="ij")
+    px = (x0[..., None] + rx.reshape(-1)).float()  # (slots, blocks, rects, 32 px)
+    py = (y0[..., None] + ry.reshape(-1)).float()
+
+    def lane(k):
+        return rec[:, k, None, None, None]
+
+    cx = lane(0) * px + lane(1) * py + lane(2)
+    cy = lane(3) * px + lane(4) * py + lane(5)
+    cxs, cys = cx * lane(6), cy * lane(6)
+    passes = ((cxs >= 0.0) & (cys >= 0.0) & (lane(7) - cxs - cys >= 0.0)).any(-1)
+    assert passes.any()
+    assert not (passes & ~masks).any()
+    assert masks.float().mean() < 0.5

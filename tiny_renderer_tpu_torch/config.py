@@ -41,9 +41,10 @@ class RenderConfig:
     # Collapse duplicate shadow-map indices in the occlusion probe (JAX only).
     occlusion_dedup: bool = False
 
-    # Raster screen tile (one CUDA thread block per tile in the port).  The
-    # multiple-of-128 / multiple-of-8 validation is the TPU's, kept so one
-    # config drives both packages.
+    # Raster screen tile: the unit of binning (the port's kernel splits it
+    # into 8x32 sub-tiles, one thread block each).  The multiple-of-128 /
+    # multiple-of-8 validation is the TPU's, kept so one config drives both
+    # packages.
     tile_h: int = 32
     tile_w: int = 128
     # Compact real incidences before the binning sort (same CSR result).

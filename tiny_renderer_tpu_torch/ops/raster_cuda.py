@@ -13,10 +13,12 @@ functions.
 
 The kernels are built at first use with nvcc into ``_build/`` beside the
 package, as a plain-C shared library loaded with ctypes, and cached there by
-a hash of the source and the flags.  ``LAUNCHES`` counts kernel launches by
-mode: ``raster`` (every K1 launch), ``fused`` (every K2 launch), and
-``gathered``, ``int16``, ``strips``, ``planes`` (the launches that ran that
-mode).
+a hash of the source and the flags.  A kernel block covers one SUBTILE of a
+bin tile and walks only the 4x8 rects a candidate may cover; ``cull_masks``
+is that cull in plain torch (for accounting and tests).  ``LAUNCHES``
+counts kernel launches by mode: ``raster`` (every K1 launch), ``fused``
+(every K2 launch), and ``gathered``, ``int16``, ``strips``, ``planes`` (the
+launches that ran that mode).
 """
 
 from __future__ import annotations
@@ -45,12 +47,17 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
-_MAX_THREADS = 1024
 MAX_PLANES = 16  # varying planes one K1 launch emits (the plane table is a kernel argument)
 _PLANE_MODES = {"interp": 0, "const": 1, "zfrag": 2, "texidx": 3}
 # Record lanes one output plane of each mode reads from its first lane.
 PLANE_LANES = {"interp": 3, "zfrag": 3, "const": 1, "texidx": 6}
 _REF_CHUNK_ELEMS = 1 << 23  # twin: (tiles x slots x pixels) elements per step
+# Rows and columns of the sub-tile one kernel block covers, and the block's
+# warps (csrc/raster.cu kSubH, kSubW, kWarps; checked against the library
+# before a launch).
+SUBTILE = (8, 32)
+_WARPS = 8
+_EXACT_SPAN = 2.0 ** 23  # csrc/raster.cu kExactSpan
 
 
 def reset_launches():
@@ -66,15 +73,15 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(force: bool = False):
-    """Compile csrc/raster.cu into BUILD_DIR (unless an up-to-date build is
-    cached there, or `force`).  Returns (library path, seconds spent
-    compiling, nvcc's output).  Raises RuntimeError with nvcc's stderr if
-    the build fails."""
-    src = SOURCE.read_bytes()
+def build(force: bool = False, source: Path = SOURCE):
+    """Compile `source` (csrc/raster.cu) into BUILD_DIR (unless an
+    up-to-date build is cached there, or `force`).  Returns (library path,
+    seconds spent compiling, nvcc's output).  Raises RuntimeError with
+    nvcc's stderr if the build fails."""
+    src = source.read_bytes()
     digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"raster_{digest}.so"
-    log = BUILD_DIR / f"raster_{digest}.log"
+    lib = BUILD_DIR / f"{source.stem}_{digest}.so"
+    log = BUILD_DIR / f"{source.stem}_{digest}.log"
     if lib.exists() and not force:
         return lib, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -82,22 +89,22 @@ def build(force: bool = False):
     os.close(fd)
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCE)],
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
         capture_output=True, text=True,
     )
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed to build {source.name}:\n{proc.stderr}")
     os.replace(tmp, lib)
     out = proc.stdout + proc.stderr
     log.write_text(out)
     return lib, seconds, out
 
 
-@functools.cache
-def _library():
-    lib = ctypes.CDLL(str(build()[0]))
+def load(path):
+    """The built library at `path`, with its functions' argument types set."""
+    lib = ctypes.CDLL(str(path))
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     lib.raster_depth.argtypes = [p, i, p, p, i, i, i, i, i, p, p, i, p, i, p, i, ip, p]
@@ -106,9 +113,22 @@ def _library():
     lib.raster_fused.restype = i
     lib.raster_error_string.argtypes = [i]
     lib.raster_error_string.restype = ctypes.c_char_p
-    lib.raster_pixels_per_thread.argtypes = []
-    lib.raster_pixels_per_thread.restype = i
+    lib.raster_subtile.argtypes = [ip]
+    lib.raster_subtile.restype = None
     return lib
+
+
+@functools.cache
+def _library():
+    return load(build()[0])
+
+
+def subtile(lib):
+    """(rows, columns) of the sub-tile one kernel block covers, and the
+    block's warps."""
+    hww = (ctypes.c_int * 3)()
+    lib.raster_subtile(hww)
+    return (hww[0], hww[1]), hww[2]
 
 
 def _plane_layout(spec):
@@ -225,14 +245,17 @@ def _check_pass(records, tris, starts, num_tiles):
         raise ValueError("rasterize needs at least one tile and one CSR slot")
 
 
-def _threads(lib, tile_h, tile_w):
-    pix = lib.raster_pixels_per_thread()
-    threads, rem = divmod(tile_h * tile_w, pix)
-    if rem or threads % 32 or threads > _MAX_THREADS:
+def _check_tile(lib, tile_h, tile_w):
+    (sub_h, sub_w), warps = subtile(lib)
+    if ((sub_h, sub_w), warps) != (SUBTILE, _WARPS):
+        raise RuntimeError(f"the library's {sub_h}x{sub_w} sub-tile of {warps} warps is not "
+                           f"SUBTILE {SUBTILE} of {_WARPS}")
+    if tile_h % sub_h or tile_w % sub_w:
         raise ValueError(
-            f"tile {tile_h}x{tile_w} unsupported: the kernel needs a multiple of "
-            f"{32 * pix} pixels and at most {_MAX_THREADS * pix}"
+            f"tile {tile_h}x{tile_w} unsupported: the kernel's blocks cover {sub_h}x{sub_w} "
+            "sub-tiles, so tile_h and tile_w must be multiples of them"
         )
+    return sub_w
 
 
 def _ptr(t):
@@ -253,7 +276,7 @@ def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile
     num_tiles = tiles_y * tiles_x
     _check_pass(records, tris, starts, num_tiles)
     lib = _library()
-    _threads(lib, tile_h, tile_w)
+    sub_w = _check_tile(lib, tile_h, tile_w)
 
     shape = (tiles_y * tile_h, tiles_x * tile_w)
     dev = records.device
@@ -262,8 +285,12 @@ def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile
     z = torch.empty(shape, dtype=torch.float32, device=dev) if emit_z else None
     idx = torch.empty(shape, dtype=idx_t, device=dev) if with_idx else None
     varys = torch.empty((len(planes), *shape), dtype=torch.float32, device=dev) if planes else None
-    strips = (torch.empty((shape[0], shape[1] // emit_strips), dtype=torch.int32, device=dev)
-              if emit_strips else None)
+    strips = None
+    if emit_strips:
+        # Strips that cross a sub-tile border are combined with atomicMax.
+        strips = torch.empty((shape[0], shape[1] // emit_strips), dtype=torch.int32, device=dev)
+        if sub_w % emit_strips:
+            strips.fill_(-1)
     desc = (ctypes.c_int * (5 * max(1, len(planes))))(
         *[v for m, lane, _p, w, h, t in planes for v in (_PLANE_MODES[m], lane, w, h, t)]
     )
@@ -291,7 +318,7 @@ def _launch_fused(rec1, tris1, starts1, rec2, tris2, starts2, *, tile_h, tile_w,
     if rec2.device != rec1.device:
         raise ValueError("both passes must lie on one device")
     lib = _library()
-    _threads(lib, tile_h, tile_w)
+    _check_tile(lib, tile_h, tile_w)
     shape = (tiles_y * tile_h, tiles_x * tile_w)
     shadow_z = torch.empty(shape, dtype=torch.float32, device=rec1.device)
     idx = torch.empty(shape, dtype=torch.int32, device=rec1.device)
@@ -450,3 +477,80 @@ def rasterize_fused_reference(rec1, tris1, starts1, rec2, tris2, starts2, *, til
     shadow_z = rasterize_reference(rec1, tris1, starts1, emit_idx=False, **grid)[0]
     idx = rasterize_reference(rec2, tris2, starts2, emit_z=False, **grid)[1]
     return shadow_z, idx
+
+
+def _edge(a, b, c, x, y):
+    return a * x + b * y + c
+
+
+def _exact_over(r, x1, y1):
+    """csrc/raster.cu exact_over, elementwise over records r (..., lanes)."""
+    lanes = r[..., [0, 1, 2, 3, 4, 5, 7]]
+    ints = (lanes.trunc() == lanes).all(-1) & (r[..., 6].abs() == 1.0)
+    a = r[..., :8].abs()
+    span = (((a[..., 0] + a[..., 3]) * x1 + (a[..., 1] + a[..., 4]) * y1)
+            + ((a[..., 2] + a[..., 5]) + a[..., 7]))
+    return ints & (span <= _EXACT_SPAN)
+
+
+def _may_cover(r, exact, x0, x1, y0, y1):
+    """csrc/raster.cu may_cover, elementwise: False only where no pixel of
+    [x0, x1] x [y0, y1] passes record r's inside test."""
+    a1, b1, c1, a2, b2, c2, sgn, absz = (r[..., k] for k in range(8))
+    pos = sgn > 0.0
+
+    def corner(coef, hi, lo):
+        return torch.where((coef > 0.0) == pos, hi, lo)
+
+    xh1, yh1 = corner(a1, x1, x0), corner(b1, y1, y0)
+    xh2, yh2 = corner(a2, x1, x0), corner(b2, y1, y0)
+    e1 = _edge(a1, b1, c1, xh1, yh1) * sgn
+    e2 = _edge(a2, b2, c2, xh2, yh2) * sgn
+    x3, y3 = corner(a1 + a2, x0, x1), corner(b1 + b2, y0, y1)
+    tight = absz - _edge(a1, b1, c1, x3, y3) * sgn - _edge(a2, b2, c2, x3, y3) * sgn
+    loose = (absz - _edge(a1, b1, c1, x0 + x1 - xh1, y0 + y1 - yh1) * sgn
+             - _edge(a2, b2, c2, x0 + x1 - xh2, y0 + y1 - yh2) * sgn)
+    return (e1 >= 0.0) & (e2 >= 0.0) & (torch.where(exact, tight, loose) >= 0.0)
+
+
+def rect_offsets(device=None):
+    """(columns, rows) i64: the top-left of each 4x8 rect of a SUBTILE block
+    within it.  Rect r is step j = r % P of warp w = r // P (csrc/raster.cu
+    rect_col, rect_row; P rects per warp, W warps): for P = 1, rect (w //
+    C, w % C) of the sub-tile's two rows of C rects; else row j // (P / 2),
+    column ((w + W / 2 * row) mod W) + W (j mod P / 2).  Neighbouring rects
+    belong to different warps."""
+    n_rects = SUBTILE[0] // 4 * (SUBTILE[1] // 8)
+    per = n_rects // _WARPS
+    r = torch.arange(n_rects, device=device)
+    w, j = r // per, r % per
+    if per == 1:
+        return 8 * (w % (n_rects // 2)), 4 * (w // (n_rects // 2))
+    row = j // (per // 2)
+    return 8 * ((w + _WARPS // 2 * row) % _WARPS + _WARPS * (j % (per // 2))), 4 * row
+
+
+def cull_masks(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile_offset=0):
+    """The kernel's cull (csrc/raster.cu) in plain torch, for accounting and
+    for testing it: for every CSR slot in [starts[0], starts[-1]) and every
+    SUBTILE block of the slot's tile (row-major), the 4x8 rects of the
+    block (rect_offsets) that the kernel walks the slot's record on (none
+    where the block cull drops it).
+
+    Returns (tile (S,) i64, masks (S, blocks per tile, rects per block) bool)."""
+    sub_h, sub_w = SUBTILE
+    dev = records.device
+    nby, nbx = tile_h // sub_h, tile_w // sub_w
+    tile = torch.repeat_interleave(torch.arange(tiles_y * tiles_x, device=dev),
+                                   torch.diff(starts).long())
+    slot = torch.arange(int(starts[0]), int(starts[-1]), device=dev)
+    rec = records[slot if tris is None else tris[slot].long()][:, None, None, :]
+    b = torch.arange(nby * nbx, device=dev)
+    y0 = (((tile // tiles_x + row_tile_offset) * tile_h)[:, None] + b // nbx * sub_h)[..., None].float()
+    x0 = ((tile % tiles_x * tile_w)[:, None] + b % nbx * sub_w)[..., None].float()
+    x1, y1 = x0 + (sub_w - 1), y0 + (sub_h - 1)
+    exact = _exact_over(rec, x1, y1)
+    keep = _may_cover(rec, exact, x0, x1, y0, y1)
+    cols, rows = rect_offsets(dev)
+    rx, ry = x0 + cols.float(), y0 + rows.float()
+    return tile, keep & _may_cover(rec, exact, rx, rx + 7.0, ry, ry + 3.0)
