@@ -6,8 +6,9 @@
 Phases (each prints a line; any failure raises, so the exit code is not 0):
 
 1. device  — require CUDA; print the card's name and power limit.
-2. build   — compile the raster kernels (csrc/raster.cu) with nvcc for sm_90a
-             and print ptxas's registers/spills for every instantiation.
+2. build   — compile the raster kernels (csrc/raster.cu) with nvcc for sm_90a,
+             and their probe build beside them, and print ptxas's
+             registers/spills for every instantiation.
 3. kernel  — every kernel mode against its plain torch twin on seeded random
              soups, the depth tie case, the flagship scene's two passes and
              five adversarial screen-space scenes (large and huge triangles,
@@ -21,6 +22,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              const and interp planes, K2 (both passes in one launch), and
              the all-on knob config's two launches on its 16x128 tiles
              (gathered + int16 + strips + planes in one camera launch).
+             On each scene's two passes, the rect masks the kernel computes
+             (its probe build) equal raster_cuda.cull_masks, the torch
+             model of the cull that the work counts below come from.
 4. slice   — Scene.render plus a 16-frame 800x800 shadow burst of the
              flagship scene through the public API: two kernel launches
              per frame, no black frame, no overflow, frames bit-identical
@@ -34,15 +38,17 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              compact_shade=False also through Scene.render (z, frame, shadow
              equal to the default Scene.render).
 6. timing  — kernel and twin ms per launch per mode at the flagship shapes
-             (the kernel's device time with the launch queue held full, and
-             its time paced by the host), beside PR 2's times; the cull's
-             work per block; burst ms per frame of each knob config beside
-             the default (CUDA events / host clock after warm-up, configs in
-             turns), beside the card's name and power limit.
+             (CUDA events around launches paced by the host, as the times
+             before the redesign were taken, and the kernel's device time
+             with the launch queue held full), beside those earlier times
+             (PR2_MS); the cull's work per block; burst
+             ms per frame of each knob config beside the default (host
+             clock after warm-up, configs in turns), beside the card's name
+             and power limit.
 
 Launch counts are set to 0 just before each path is driven and read just
-after.  Prints a JSON line of kernel results (time, launches, error, and the
-bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
+after.  Prints a JSON line of kernel results (time paced by the host as
+"ms", device time as "device_ms", launches, error, and the bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
 over 3.35 TB/s, counted from this run's binned inputs, with phase 1's
 operations only at the pixels inside each candidate's bbox), then, last, the
 device JSON line.  The scene is diablo when assets/diablo exists, else a UV
@@ -57,6 +63,7 @@ import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -94,7 +101,8 @@ OPS_PHASE2_BASE = 16  # edge functions + exact-division barycentrics per covered
 # the tile swizzle (14).
 OPS_PER_PLANE = {"interp": 5, "zfrag": 5, "const": 0, "texidx": 20}
 OPS_ROW_MAJOR, OPS_SWIZZLE = 2, 14
-# Kernel ms per launch before the walk's redesign, for comparison.
+# Kernel ms per launch before the walk's redesign (CUDA events around
+# launches paced by the host), for comparison.
 PR2_LABEL = "PR 2's chip run 4 on NVIDIA H100 80GB HBM3 at 700 W"
 PR2_MS = {"light/z": 0.2834, "camera/idx": 0.1425, "camera/z+idx": 0.1426, "gathered": 0.1412,
           "int16": 0.1428, "strips": 0.1456, "planes": 0.1803, "fused": 0.4284}
@@ -136,9 +144,10 @@ def signed_zero(binned):
 def block_work(setup, binned, g):
     """Per kernel block (tile-major, the tile's sub-tiles row-major): the
     candidates its walk stages (its bin tile's list), those that pass its
-    sub-tile cull, the pixel tests it makes (32 per 4x8 step the cull
-    leaves, raster_cuda.cull_masks), and the (pixel, candidate) pairs
-    inside the candidates' inclusive screen bboxes.  No pixel outside the
+    sub-tile cull, the pixel tests it makes (32 per 4x8 rect the cull
+    leaves; raster_cuda.cull_masks, the torch model of the cull, which the
+    kernel phase holds to the kernel's masks), and the (pixel, candidate)
+    pairs inside the candidates' inclusive screen bboxes.  No pixel outside the
     bbox can pass the exact integer inside test, so the last are the phase 1
     tests the outputs need."""
     from tiny_renderer_tpu_torch.ops.raster_cuda import SUBTILE, cull_masks
@@ -200,7 +209,7 @@ def main() -> int:
     from tiny_renderer_tpu_torch.convert import to_tensor
     from tiny_renderer_tpu_torch.models.stress import adversarial, screen_scene
     from tiny_renderer_tpu_torch.ops import mathlib as ml
-    from tiny_renderer_tpu_torch.ops import raster_cuda
+    from tiny_renderer_tpu_torch.ops import raster_cuda, raster_probe
     from tiny_renderer_tpu_torch.ops.binning import bin_triangles
     from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
     from tiny_renderer_tpu_torch.pipelines.frame import make_burst_fn, render_frame
@@ -216,8 +225,11 @@ def main() -> int:
     phase("device", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
     # -- 2. build -------------------------------------------------------------
-    lib, seconds, log = raster_cuda.build(force=True)
-    phase("build", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s")
+    with ThreadPoolExecutor(2) as pool:  # one nvcc each, started together
+        builds = list(pool.map(lambda probe: raster_cuda.build(force=True, probe=probe), (False, True)))
+    (lib, seconds, log), (probe_lib, probe_seconds, _) = builds
+    phase("build", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s, "
+          f"and with -DRASTER_PROBE -> {probe_lib.name} in {probe_seconds:.3f} s")
     for line in log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             phase("build", line.strip())
@@ -284,7 +296,7 @@ def main() -> int:
     allon_spec = kernel_varying_spec("shadow", tex, tile=allon_cfg.tex_tile)
     allon_cam = dict(emit_z=False, spec=allon_spec, emit_strips=allon_cfg.strip_len, idx_dtype="int16")
     err = {k: 0.0 for k in ("depth", "gathered", "int16", "strips", "planes", "fused")}
-    n_cmp, covered = 0, {}
+    n_cmp, covered, n_masks = 0, {}, 0
 
     def compare(kind_, label, got, want):
         nonlocal n_cmp
@@ -313,6 +325,10 @@ def main() -> int:
         base = passes_of()
         gath = passes_of(gathered_cfg)
         for pname in ("light", "camera"):
+            got = raster_probe.kernel_masks(*base[pname], **grid)
+            check(torch.equal(got, raster_probe.model_masks(*base[pname], **grid)),
+                  f"{cname}/{pname}: the kernel's rect masks differ from raster_cuda.cull_masks")
+            n_masks += got.numel()
             for mode, kw in MODES.items():
                 out = k1("depth", f"{cname}/{pname}/{mode}", base[pname], **kw)
                 if out[1] is not None:
@@ -350,7 +366,8 @@ def main() -> int:
             check(bool(signs.any()) and bool((~signs).any()),
                   "signed-zero case: both signs of zero must be stored")
     phase("kernel", f"{n_cmp} kernel/twin comparisons bit-identical (tolerance: exact), "
-          f"max_abs_err {err}; covered px {covered}")
+          f"max_abs_err {err}; covered px {covered}; the kernel's rect masks equal "
+          f"raster_cuda.cull_masks on all {2 * len(cases)} passes ({n_masks} (slot, block) masks)")
 
     # -- 4. slice -------------------------------------------------------------
     scene = Scene(model, "shadow", RenderConfig(), device=dev)
@@ -435,11 +452,11 @@ def main() -> int:
         phase("knobs", msg)
 
     # -- 6. timing ------------------------------------------------------------
-    def time_launches(fn, n, hold=True):
-        """ms per call of fn over n calls, by CUDA events after warm-up.
-        hold: the device sleeps while the calls are queued (twice the time
-        the host took to queue them, at up to 2 GHz), so that the events
-        time the device's work and not the host's pace."""
+    def time_launches(fn, n, hold=False):
+        """ms per call of fn over n calls, by CUDA events after warm-up: the
+        calls as the host paces them, or with hold, the device's work alone
+        (the device sleeps while the calls are queued, twice the time the
+        host took to queue them at up to 2 GHz, so the queue stays full)."""
         for _ in range(2):
             fn()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -459,10 +476,11 @@ def main() -> int:
         return start.elapsed_time(end) / n
 
     def timed(key, label, kernel, twin):
-        ms = (time_launches(kernel, 200), time_launches(twin, 5, hold=False))
-        paced = time_launches(kernel, 200, hold=False)
-        phase("timing", f"{label}: kernel {ms[0]:.4f} ms per launch on the device ({paced:.4f} paced by "
-              f"the host; {PR2_MS[key]:.4f} in {PR2_LABEL}), twin {ms[1]:.4f} ms  [{smi}]")
+        """(kernel ms paced by the host, twin ms, kernel ms on the device)."""
+        ms = (time_launches(kernel, 200), time_launches(twin, 5), time_launches(kernel, 200, hold=True))
+        phase("timing", f"{label}: kernel {ms[0]:.4f} ms per launch paced by the host ({PR2_MS[key]:.4f} "
+              f"in {PR2_LABEL}), {ms[2]:.4f} on the device with the launch queue held full; "
+              f"twin {ms[1]:.4f} ms  [{smi}]")
         return ms
 
     flag = passes(flag_geom)
@@ -485,7 +503,8 @@ def main() -> int:
     nb = both["tests"].numel() // cfg.num_tiles
     n_blocks = cfg.padded_width // raster_cuda.SUBTILE[1] * (cfg.padded_height // raster_cuda.SUBTILE[0])
     sm_ms = OPS_PER_CANDIDATE / (PEAK_FLOPS / 132) * 1e3  # one test at one SM's share of the peak
-    phase("timing", "flagship binning and the kernel's work: " + ", ".join(
+    phase("timing", "flagship binning and the kernel's work (by raster_cuda.cull_masks, whose masks "
+          "equal the kernel's): " + ", ".join(
         f"{p} pass {int(c.sum())} incidences on {int((c > 0).sum())} of {c.numel()} tiles "
         f"(max {int(c.max())} per tile), {tests[p]} pixel tests inside the bboxes "
         f"({tests[p] / int(c.sum()):.2f} per incidence), the kernel makes {int(work[p]['tests'].sum())} "
@@ -566,7 +585,7 @@ def main() -> int:
     entries = [
         ("raster_depth (K1 phase 1: light pass depth-only + camera pass idx-only, ms per frame)",
          f"{rp}:167", "depth", counts["raster"],
-         (ms["light/z"][0] + ms["camera/idx"][0], ms["light/z"][1] + ms["camera/idx"][1])),
+         tuple(a + b for a, b in zip(ms["light/z"], ms["camera/idx"]))),
         ("raster_depth, gathered records (K1 tris=None; camera pass idx-only)", f"{rp}:208",
          "gathered", knob_counts["nocsr+mask"]["gathered"], ms["gathered"]),
         ("raster_depth, int16 index target (K1; camera pass)", f"{rp}:231", "int16",
@@ -580,7 +599,7 @@ def main() -> int:
     ]
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": n, "max_abs_err": err[key], "ms": t[0], "plain_ms": t[1],
+        "launches": n, "max_abs_err": err[key], "ms": t[0], "device_ms": t[2], "plain_ms": t[1],
         "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
     } for name, replaces, key, n, t in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

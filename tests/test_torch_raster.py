@@ -363,10 +363,11 @@ def test_signed_zero_tie_first_wins(neg_first, one_slot_chunks, monkeypatch):
 
 @pytest.mark.parametrize("name", sorted(ADVERSARIAL) + ["random"])
 def test_cull_drops_only_rects_no_pixel_passes(name):
-    """raster_cuda.cull_masks (the kernel's cull): a 4x8 rect of a sub-tile
-    is left out of a candidate's walk only if none of its pixels passes the
-    candidate's inside test, evaluated as the walk evaluates it; and the
-    cull leaves out most rects."""
+    """raster_cuda.cull_masks, the torch model of the kernel's cull (which
+    chip_smoke.py holds to the kernel's own masks on the card): a 4x8 rect
+    of a sub-tile is left out of a candidate's walk only if none of its
+    pixels passes the candidate's inside test, evaluated as the walk
+    evaluates it; and the cull leaves out most rects."""
     binned = _binned(_random_scene(200, 0)) if name == "random" else _screen_binned(ADVERSARIAL[name])
     records, tris, starts = _tensors(binned)
     g = _grid(CFG)

@@ -36,17 +36,16 @@
 // (for phase 2) winning record row in registers: no atomics and no merge,
 // so the order and the result are those of the serial walk, whatever the
 // split.  Clear values are f32::MIN and -1.  Of the shapes timed on the
-// H100 (raster_probe.py; PERF.md), this one was the fastest: 8 x 32, 8 x 64
-// and 8 x 128 sub-tiles with 2 to 16 warps, 1 to 4 rects per warp, and a
-// persistent grid fed from a work queue (slower: the queue's atomics and
-// the empty sub-tiles' turns cost more than the hardware's block launches).
+// H100 (PERF.md), this one was the fastest: 8 x 32, 8 x 64 and 8 x 128
+// sub-tiles with 2 to 16 warps, 1 to 4 rects per warp, and a persistent
+// grid fed from a work queue (slower: the queue's atomics and the empty
+// sub-tiles' turns cost more than the hardware's block launches).
 //
 // Thread -> pixel map.  The sub-tile is two rows of four 4 x 8 rects; warp
 // w owns rect (w / 4, w mod 4) (rect_row, rect_col), lane l pixel (l / 8,
 // l mod 8) of it, so a thread holds one pixel and a cluster of small
 // triangles spreads over the warps of its rects.  A record's rect mask has
-// one bit per rect (per warp).  rect_row/rect_col also lay out 2 or 4 rects
-// a warp (fewer warps, or wider sub-tiles), for raster_probe's variants.
+// one bit per rect (per warp).
 //
 // The walk, per staged chunk of up to 512 records:
 //  1. each thread loads two records (13 lanes each, every load in flight at
@@ -72,8 +71,9 @@
 // sgn = +-1, a bound on the magnitudes: the binned records of on-screen
 // triangles), the arithmetic is exact, edge 3 is affine, and its value at
 // its own corner is its maximum: then the test is exact for all three
-// edges.  raster_cuda.cull_masks is the same cull in torch, and the CPU
-// tests hold it to the per-pixel test.
+// edges.  raster_cuda.cull_masks models this cull in torch: the CPU tests
+// hold the model to the per-pixel test, and chip_smoke.py holds it to the
+// masks this kernel computes (read from the probe build, below).
 //
 // int16 target.  The resolve stays int32 in registers; the store casts once
 // per pixel.  It halves the index write.
@@ -113,13 +113,19 @@
 // mul+add is contracted into an FMA, so the kernels equal their eager torch
 // twins (raster_cuda.rasterize_reference) bit for bit on the card.
 //
+// Probe build.  Compiled with -DRASTER_PROBE (raster_cuda.build(probe=
+// True), ops/raster_probe.py), the PROBE_* markers below stamp each block's
+// start, end and phase times from %globaltimer, with a block barrier added
+// after the walk, and write each staged record's rect mask out.  Without
+// the define they expand to nothing.
+//
 // What it does not do yet: split a long list across blocks (every block of
 // a bin tile stages and culls the tile's whole list, so a tile of 2,000
 // triangles costs each of its 16 blocks ~10 us of staging on the H100),
 // keep the next chunk's loads in flight during the walk (cp.async/TMA), or
 // start the busy blocks first: ~80% of the blocks at 800x800 find an empty
 // list, and a busy block queued behind thousands of them starts up to
-// ~8 us late (a separate kernel that ordered the tiles busy-first cost
+// 6-8 us late (a separate kernel that ordered the tiles busy-first cost
 // more than it saved, PERF.md).
 
 #include <cuda_runtime.h>
@@ -128,21 +134,18 @@ namespace {
 
 constexpr int kSubH = 8;                // rows of a block's sub-tile
 constexpr int kSubW = 32;               // columns of a block's sub-tile
-constexpr int kWarps = 8;
-constexpr int kThreads = 32 * kWarps;
 constexpr int kRects = kSubH / 4 * (kSubW / 8);  // 4 x 8 rects of a sub-tile
-constexpr int kPix = kRects / kWarps;   // rects (steps) per warp = pixels per thread
+constexpr int kWarps = kRects;          // one rect a warp
+constexpr int kThreads = 32 * kWarps;
 constexpr int kStage = 2;               // records each thread stages per chunk
 constexpr int kChunk = kStage * kThreads;
 constexpr int kUnroll = 2;              // candidates a warp evaluates together
-constexpr int kMinBlocks = 1;           // __launch_bounds__ minimum (3 or 4 ran no faster)
 constexpr int kLanes = 13;              // record lanes the depth walk reads
 constexpr int kOutStride = kSubW + 8;   // stash row stride in words
 constexpr int kMaxPlanes = 16;          // varying planes per launch
 constexpr float kF32Min = -3.40282347e+38f;
 constexpr float kExactSpan = 8388608.0f;  // 2^23: see exact_over
-static_assert(kRects <= 32 && 32 % kRects == 0, "a record's rect mask fits a ballot");
-static_assert(kPix * kWarps == kRects && (kPix == 1 || kPix % 2 == 0), "kPix rects per warp");
+static_assert(kSubH == 8 && 32 % kRects == 0, "two rows of rects; a record's rect mask fits a ballot");
 
 enum PlaneMode { kInterp = 0, kConst = 1, kZfrag = 2, kTexidx = 3 };
 
@@ -192,52 +195,77 @@ struct Smem {
 };
 
 // This block's sub-tile: its bin tile, the pixel coordinates of its top-left
-// (y includes the band offset row_off) and its first output row.
+// (y includes the band offset row_off), its first output row, and its index
+// among its bin tile's sub-tiles (row-major) and their count.
 struct Block {
-  int tile, x0, y0, orow;
+  int tile, x0, y0, orow, sub, subs;
 };
 
 __device__ __forceinline__ Block block_of(const Grid& g) {
   Block b;
-  const int ty = blockIdx.y * kSubH / g.tile_h;
-  const int tx = blockIdx.x * kSubW / g.tile_w;
-  b.tile = ty * g.tiles_x + tx;
+  const int per_x = g.tile_w / kSubW, per_y = g.tile_h / kSubH;
+  b.tile = blockIdx.y / per_y * g.tiles_x + blockIdx.x / per_x;
   b.x0 = blockIdx.x * kSubW;
   b.orow = blockIdx.y * kSubH;
   b.y0 = g.row_off * g.tile_h + b.orow;
+  b.sub = blockIdx.y % per_y * per_x + blockIdx.x % per_x;
+  b.subs = per_x * per_y;
   return b;
 }
 
-// Rect j (step j) of warp w.  With one rect per warp, warp w has rect
-// (w / 4, w mod 4) of the sub-tile's two rows of 4 x 8 rects; with kPix
-// rects, rect j sits in row j / (kPix / 2), column ((w + kWarps / 2 * row)
-// mod kWarps) + kWarps * (j mod kPix / 2).  Neighbouring rects, across and
-// down, belong to different warps.  Bit w * kPix + j of a record's rect
-// mask.
-constexpr int kHalf = kPix > 1 ? kPix / 2 : 1;  // rects per warp in a rect row
-__device__ __forceinline__ int rect_row(int w, int j) {
-  return 4 * (kPix == 1 ? w / (kRects / 2) : j / kHalf);
-}
-__device__ __forceinline__ int rect_col(int w, int j) {
-  if (kPix == 1) return 8 * (w % (kRects / 2));
-  return 8 * ((w + kWarps / 2 * (j / kHalf)) % kWarps + kWarps * (j % kHalf));
-}
+// Warp w's rect, (w / 4, w mod 4) of the sub-tile's two rows of 4 x 8
+// rects: bit w of a record's rect mask.
+__device__ __forceinline__ int rect_row(int w) { return 4 * (w / (kRects / 2)); }
+__device__ __forceinline__ int rect_col(int w) { return 8 * (w % (kRects / 2)); }
 
-// The running winner of each of a thread's pixels: its z, triangle index
-// and record row (for phase 2).
-struct Winners {
-  float z[kPix];
-  int idx[kPix], row[kPix];
+// The running winner of a thread's pixel: its z, triangle index and record
+// row (for phase 2).
+struct Winner {
+  float z;
+  int idx, row;
 };
 
-__device__ __forceinline__ void clear(Winners& w) {
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    w.z[j] = kF32Min;
-    w.idx[j] = -1;
-    w.row[j] = 0;
-  }
+__device__ __forceinline__ void clear(Winner& w) {
+  w.z = kF32Min;
+  w.idx = -1;
+  w.row = 0;
 }
+
+#ifdef RASTER_PROBE
+// Probe buffers (raster_set_probe; null: off).  probe_times: 8 u64 per
+// block, row-major over the grid: total, staging + sub-tile cull, rect
+// masks, walk (ns, summed over chunks and passes), start, end (ns).
+// probe_masks: (CSR slots, sub-tiles per bin tile) u32, each staged
+// record's rect mask in each sub-tile block of its tile (K1 only: K2's
+// second pass would overwrite the first's).
+__device__ unsigned long long* probe_times;
+__device__ unsigned* probe_masks;
+
+__device__ __forceinline__ unsigned long long probe_now() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+__device__ __forceinline__ unsigned long long& probe_slot(int s) {
+  return probe_times[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 8 + s];
+}
+#define PROBE_BEGIN(s) if (threadIdx.x == 0 && probe_times) probe_slot(s) -= probe_now();
+#define PROBE_END(s) if (threadIdx.x == 0 && probe_times) probe_slot(s) += probe_now();
+#define PROBE_STAMP(s) if (threadIdx.x == 0 && probe_times) probe_slot(s) = probe_now();
+#define PROBE_SYNC() __syncthreads();
+#define PROBE_MASKS(c0, n, b, sm)                                                   \
+  if (probe_masks) {                                                                \
+    for (int t = threadIdx.x; t < (n); t += kThreads) {                             \
+      probe_masks[(size_t)((c0) + t) * (b).subs + (b).sub] = (sm).mask[t];          \
+    }                                                                               \
+  }
+#else
+#define PROBE_BEGIN(s)
+#define PROBE_END(s)
+#define PROBE_STAMP(s)
+#define PROBE_SYNC()
+#define PROBE_MASKS(c0, n, b, sm)
+#endif
 
 // An edge function at a pixel, as the walk evaluates it.
 __device__ __forceinline__ float edge(float a, float b, float c, float x, float y) {
@@ -285,28 +313,25 @@ __device__ __forceinline__ bool may_cover(const float* r, bool exact, float x0, 
 
 // Phase 1 over one pass's CSR slice of the block's bin tile.
 template <bool kIdx, bool kRow>
-__device__ __forceinline__ void depth_walk(const Pass& ps, const Block& b, Winners& win, Smem& sm) {
+__device__ __forceinline__ void depth_walk(const Pass& ps, const Block& b, Winner& win, Smem& sm) {
   const int start = ps.starts[b.tile];
   const int end = ps.starts[b.tile + 1];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  // This thread's pixel in step j.
-  float px[kPix], py[kPix];
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    px[j] = (float)(b.x0 + rect_col(warp, j) + (lane & 7));
-    py[j] = (float)(b.y0 + rect_row(warp, j) + (lane >> 3));
-  }
+  // This thread's pixel.
+  const float px = (float)(b.x0 + rect_col(warp) + (lane & 7));
+  const float py = (float)(b.y0 + rect_row(warp) + (lane >> 3));
   // The rect pass: lane l tests rect l % kRects of one of 32 / kRects
   // records at a time.
   constexpr int kPer = 32 / kRects;
   const int sub = lane / kRects, rect = lane % kRects;
-  const float rx0 = (float)(b.x0 + rect_col(rect / kPix, rect % kPix));
-  const float ry0 = (float)(b.y0 + rect_row(rect / kPix, rect % kPix));
+  const float rx0 = (float)(b.x0 + rect_col(rect));
+  const float ry0 = (float)(b.y0 + rect_row(rect));
   const float bx0 = (float)b.x0, by0 = (float)b.y0;
   const float bx1 = bx0 + (float)(kSubW - 1), by1 = by0 + (float)(kSubH - 1);
   for (int c0 = start; c0 < end; c0 += kChunk) {
     const int n = min(kChunk, end - c0);
     __syncthreads();  // the previous chunk is consumed
+    PROBE_BEGIN(1)
     // 1. Stage the records, each thread its own, and cull each against the
     //    sub-tile: mask 0 = misses it, else 1 | exact << 1.
 #pragma unroll
@@ -328,6 +353,7 @@ __device__ __forceinline__ void depth_walk(const Pass& ps, const Block& b, Winne
       }
     }
     __syncthreads();
+    PROBE_END(1) PROBE_BEGIN(2)
     // 2. Rect masks of the survivors: warp w takes records w, w + kWarps, ...
     for (int g = 0; g < kChunk / (32 * kWarps); ++g) {
       const int mine = warp + kWarps * (lane + 32 * g);
@@ -345,29 +371,26 @@ __device__ __forceinline__ void depth_walk(const Pass& ps, const Block& b, Winne
         const float* rec = reinterpret_cast<const float*>(sm.rec[r]);
         const bool hit = k >= 0 && may_cover(rec, (fk >> 1) & 1u, rx0, rx0 + 7.0f, ry0, ry0 + 3.0f);
         const unsigned m = __ballot_sync(~0u, hit);
-        if (rect == 0 && k >= 0) {
-          sm.mask[r] = kRects == 32 ? m : (m >> (sub * kRects)) & ((1u << kRects) - 1u);
-        }
+        if (rect == 0 && k >= 0) sm.mask[r] = (m >> (sub * kRects)) & ((1u << kRects) - 1u);
       }
     }
     __syncthreads();
+    PROBE_MASKS(c0, n, b, sm)
+    PROBE_END(2) PROBE_BEGIN(3)
     // 3. The walk, in slot order, over the records that touch this warp's
-    //    rects, kUnroll at a time (evaluated together, kept in order).
+    //    rect, kUnroll at a time (evaluated together, kept in order).
     for (int base = 0; base < n; base += 32) {
-      const unsigned steps =
-          base + lane < n ? (sm.mask[base + lane] >> (kPix * warp)) & ((1u << kPix) - 1u) : 0u;
-      unsigned live = __ballot_sync(~0u, steps != 0u);
+      const bool touches = base + lane < n && ((sm.mask[base + lane] >> warp) & 1u);
+      unsigned live = __ballot_sync(~0u, touches);
       while (live) {
         float4 q0[kUnroll], q1[kUnroll], q2[kUnroll];
         float q3[kUnroll];
-        unsigned on[kUnroll];
-        unsigned any = 0u;
+        bool on[kUnroll];
         int row[kUnroll];
 #pragma unroll
         for (int u = 0; u < kUnroll; ++u) {
-          const int k = live ? __ffs(live) - 1 : 0;
-          on[u] = live ? __shfl_sync(~0u, steps, k) : 0u;
-          any |= on[u];
+          on[u] = live != 0u;
+          const int k = on[u] ? __ffs(live) - 1 : 0;
           q0[u] = sm.rec[base + k][0];
           q1[u] = sm.rec[base + k][1];
           q2[u] = sm.rec[base + k][2];
@@ -375,53 +398,46 @@ __device__ __forceinline__ void depth_walk(const Pass& ps, const Block& b, Winne
           row[u] = kRow ? sm.row[base + k] : 0;
           live &= live - 1;
         }
+        bool inside[kUnroll];
+        float z[kUnroll];
 #pragma unroll
-        for (int j = 0; j < kPix; ++j) {
-          if (!((any >> j) & 1u)) continue;
-          bool inside[kUnroll];
-          float z[kUnroll];
+        for (int u = 0; u < kUnroll; ++u) {
+          // Lanes: a1 b1 c1 a2 | b2 c2 sgn |cz| | 1/cz z1 z2 z3 | index.
+          const float cx = q0[u].x * px + q0[u].y * py + q0[u].z;
+          const float cy = q0[u].w * px + q1[u].x * py + q1[u].y;
+          const float cxs = cx * q1[u].z;
+          const float cys = cy * q1[u].z;
+          inside[u] = on[u] & (cxs >= 0.0f) & (cys >= 0.0f) & (q1[u].w - cxs - cys >= 0.0f);
+          const float uu = cx * q2[u].x;
+          const float vv = cy * q2[u].x;
+          const float ww = 1.0f - (cx + cy) * q2[u].x;
+          z[u] = (ww * q2[u].y + uu * q2[u].z) + vv * q2[u].w;
+        }
 #pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            // Lanes: a1 b1 c1 a2 | b2 c2 sgn |cz| | 1/cz z1 z2 z3 | index.
-            const float cx = q0[u].x * px[j] + q0[u].y * py[j] + q0[u].z;
-            const float cy = q0[u].w * px[j] + q1[u].x * py[j] + q1[u].y;
-            const float cxs = cx * q1[u].z;
-            const float cys = cy * q1[u].z;
-            inside[u] = ((on[u] >> j) & 1u) & (cxs >= 0.0f) & (cys >= 0.0f) &
-                        (q1[u].w - cxs - cys >= 0.0f);
-            const float uu = cx * q2[u].x;
-            const float vv = cy * q2[u].x;
-            const float ww = 1.0f - (cx + cy) * q2[u].x;
-            z[u] = (ww * q2[u].y + uu * q2[u].z) + vv * q2[u].w;
-          }
-#pragma unroll
-          for (int u = 0; u < kUnroll; ++u) {
-            if (inside[u] && z[u] > win.z[j]) {
-              win.z[j] = z[u];
-              if (kIdx) win.idx[j] = (int)q3[u];
-              if (kRow) win.row[j] = row[u];
-            }
+        for (int u = 0; u < kUnroll; ++u) {
+          if (inside[u] && z[u] > win.z) {
+            win.z = z[u];
+            if (kIdx) win.idx = (int)q3[u];
+            if (kRow) win.row = row[u];
           }
         }
       }
     }
+    PROBE_SYNC() PROBE_END(3)
   }
 }
 
 // The walk's results into the row-major stash (which overlays the staged
 // records, so it waits for every thread's walk).
 template <bool kIdx, bool kRow>
-__device__ __forceinline__ void stash(Smem& sm, const Winners& win) {
+__device__ __forceinline__ void stash(Smem& sm, const Winner& win) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int row = rect_row(warp) + (lane >> 3);
+  const int col = rect_col(warp) + (lane & 7);
   __syncthreads();
-#pragma unroll
-  for (int j = 0; j < kPix; ++j) {
-    const int row = rect_row(warp, j) + (lane >> 3);
-    const int col = rect_col(warp, j) + (lane & 7);
-    sm.out.z[row][col] = win.z[j];
-    if (kIdx) sm.out.idx[row][col] = win.idx[j];
-    if (kRow) sm.out.row[row][col] = win.row[j];
-  }
+  sm.out.z[row][col] = win.z;
+  if (kIdx) sm.out.idx[row][col] = win.idx;
+  if (kRow) sm.out.row[row][col] = win.row;
   __syncthreads();
 }
 
@@ -500,11 +516,12 @@ __device__ __forceinline__ void vary(const Pass& ps, const PlaneTable& pt, float
 // K1.  kIdx: resolve the winning index (else depth only).  kPlanes: keep
 // the winning record row and run phase 2.
 template <bool kIdx, bool kPlanes>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) raster_kernel(Pass ps, Grid g, Outputs out,
+__global__ void __launch_bounds__(kThreads) raster_kernel(Pass ps, Grid g, Outputs out,
                                                           PlaneTable pt) {
   __shared__ Smem sm;
+  PROBE_STAMP(4) PROBE_BEGIN(0)
   const Block b = block_of(g);
-  Winners win;
+  Winner win;
   clear(win);
   depth_walk<kIdx, kPlanes>(ps, b, win, sm);
   stash<kIdx, kPlanes>(sm, win);
@@ -525,15 +542,17 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) raster_kernel(Pass ps, G
     }
   }
   if (kIdx && out.strips) emit_strips(g, b, sm, out.strips, out.strip_len);
+  PROBE_SYNC() PROBE_END(0) PROBE_STAMP(5)
 }
 
 // K2: the light pass's depth, then the camera pass's index, on one sub-tile.
-__global__ void __launch_bounds__(kThreads, kMinBlocks) raster_fused_kernel(Pass light, Pass camera,
+__global__ void __launch_bounds__(kThreads) raster_fused_kernel(Pass light, Pass camera,
                                                                 Grid g, float* shadow_z,
                                                                 int* idx) {
   __shared__ Smem sm;
+  PROBE_STAMP(4) PROBE_BEGIN(0)
   const Block b = block_of(g);
-  Winners win;
+  Winner win;
   clear(win);
   depth_walk<false, false>(light, b, win, sm);
   stash<false, false>(sm, win);
@@ -548,6 +567,7 @@ __global__ void __launch_bounds__(kThreads, kMinBlocks) raster_fused_kernel(Pass
     const int row = p / kSubW, col = p - row * kSubW;
     idx[(size_t)(b.orow + row) * g.out_w + b.x0 + col] = sm.out.idx[row][col];
   }
+  PROBE_SYNC() PROBE_END(0) PROBE_STAMP(5)
 }
 
 bool make_grid(int num_tiles, int tiles_x, int tile_h, int tile_w, int row_off, Grid& g,
@@ -568,22 +588,15 @@ bool make_grid(int num_tiles, int tiles_x, int tile_h, int tile_w, int row_off, 
 
 extern "C" {
 
-// The sub-tile one block covers, (rows, columns), and the block's warps:
-// tile_h and tile_w must be multiples of the sub-tile.
-void raster_subtile(int* hww) {
-  hww[0] = kSubH;
-  hww[1] = kSubW;
-  hww[2] = kWarps;
-}
-
-// Launch K1 on `stream`.  tris may be null (gathered records).  z_out,
-// idx_out (int16 when idx16), strips_out ((Hp, Wp / strip_len) int32) and
+// Launch K1 on `stream`.  tile_h must be a multiple of kSubH (8) and tile_w
+// of kSubW (32).  tris may be null (gathered records).  z_out, idx_out
+// (int16 when idx16), strips_out ((Hp, Wp / strip_len) int32) and
 // planes_out ((n_planes, Hp, Wp) f32) may be null (not emitted); strips and
 // planes need idx_out, and strips_out must hold -1 where a strip crosses a
-// sub-tile border (strip_len not dividing 128).  plane_desc holds n_planes
-// rows of (mode, lane, W, H, swizzle tile).  All outputs are row-major
-// over (Hp, Wp) = (num_tiles / tiles_x * tile_h, tiles_x * tile_w).
-// Returns cudaGetLastError() after the launch.
+// sub-tile border (strip_len not dividing kSubW (32)).  plane_desc holds
+// n_planes rows of (mode, lane, W, H, swizzle tile).  All outputs are
+// row-major over (Hp, Wp) = (num_tiles / tiles_x * tile_h, tiles_x *
+// tile_w).  Returns cudaGetLastError() after the launch.
 int raster_depth(const float* rec, int rec_stride, const int* tris, const int* starts,
                  int num_tiles, int tiles_x, int tile_h, int tile_w, int row_off,
                  float* z_out, void* idx_out, int idx16, int* strips_out, int strip_len,
@@ -642,5 +655,14 @@ int raster_fused(const float* rec1, int stride1, const int* tris1, const int* st
 const char* raster_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
+
+#ifdef RASTER_PROBE
+// Point the probe build's probes at device buffers (see probe_times and
+// probe_masks; null: off) for the launches that follow.
+int raster_set_probe(void* times, void* masks) {
+  const cudaError_t err = cudaMemcpyToSymbol(probe_times, &times, sizeof(times));
+  return (int)(err ? err : cudaMemcpyToSymbol(probe_masks, &masks, sizeof(masks)));
+}
+#endif
 
 }  // extern "C"

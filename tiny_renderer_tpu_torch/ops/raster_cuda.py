@@ -15,10 +15,11 @@ The kernels are built at first use with nvcc into ``_build/`` beside the
 package, as a plain-C shared library loaded with ctypes, and cached there by
 a hash of the source and the flags.  A kernel block covers one SUBTILE of a
 bin tile and walks only the 4x8 rects a candidate may cover; ``cull_masks``
-is that cull in plain torch (for accounting and tests).  ``LAUNCHES``
-counts kernel launches by mode: ``raster`` (every K1 launch), ``fused``
-(every K2 launch), and ``gathered``, ``int16``, ``strips``, ``planes`` (the
-launches that ran that mode).
+models that cull in plain torch (for accounting and tests; chip_smoke.py
+holds it to the kernel's own masks from the probe build, ``build(probe=
+True)``).  ``LAUNCHES`` counts kernel launches by mode: ``raster`` (every K1
+launch), ``fused`` (every K2 launch), and ``gathered``, ``int16``,
+``strips``, ``planes`` (the launches that ran that mode).
 """
 
 from __future__ import annotations
@@ -52,11 +53,9 @@ _PLANE_MODES = {"interp": 0, "const": 1, "zfrag": 2, "texidx": 3}
 # Record lanes one output plane of each mode reads from its first lane.
 PLANE_LANES = {"interp": 3, "zfrag": 3, "const": 1, "texidx": 6}
 _REF_CHUNK_ELEMS = 1 << 23  # twin: (tiles x slots x pixels) elements per step
-# Rows and columns of the sub-tile one kernel block covers, and the block's
-# warps (csrc/raster.cu kSubH, kSubW, kWarps; checked against the library
-# before a launch).
+# Rows and columns of the sub-tile one kernel block covers (csrc/raster.cu
+# kSubH, kSubW): tile_h and tile_w must be multiples of them.
 SUBTILE = (8, 32)
-_WARPS = 8
 _EXACT_SPAN = 2.0 ** 23  # csrc/raster.cu kExactSpan
 
 
@@ -73,38 +72,38 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(force: bool = False, source: Path = SOURCE):
-    """Compile `source` (csrc/raster.cu) into BUILD_DIR (unless an
-    up-to-date build is cached there, or `force`).  Returns (library path,
+def build(force: bool = False, probe: bool = False):
+    """Compile csrc/raster.cu into BUILD_DIR (unless an up-to-date build is
+    cached there, or `force`); with `probe`, its probe build
+    (-DRASTER_PROBE, see the note in raster.cu).  Returns (library path,
     seconds spent compiling, nvcc's output).  Raises RuntimeError with
     nvcc's stderr if the build fails."""
-    src = source.read_bytes()
-    digest = hashlib.sha256(src + "\0".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{source.stem}_{digest}.so"
-    log = BUILD_DIR / f"{source.stem}_{digest}.log"
+    flags = NVCC_FLAGS + (("-DRASTER_PROBE",) if probe else ())
+    digest = hashlib.sha256(SOURCE.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+    name = f"{SOURCE.stem}{'_probe' if probe else ''}_{digest}"
+    lib, log = BUILD_DIR / f"{name}.so", BUILD_DIR / f"{name}.log"
     if lib.exists() and not force:
         return lib, 0.0, log.read_text() if log.exists() else ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(source)],
-        capture_output=True, text=True,
-    )
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(SOURCE)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {source.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
     os.replace(tmp, lib)
     out = proc.stdout + proc.stderr
     log.write_text(out)
     return lib, seconds, out
 
 
-def load(path):
-    """The built library at `path`, with its functions' argument types set."""
-    lib = ctypes.CDLL(str(path))
+@functools.cache
+def _library(probe: bool = False):
+    """The built library (the probe build with `probe`), its functions'
+    argument types set."""
+    lib = ctypes.CDLL(str(build(probe=probe)[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
     ip = ctypes.POINTER(ctypes.c_int)
     lib.raster_depth.argtypes = [p, i, p, p, i, i, i, i, i, p, p, i, p, i, p, i, ip, p]
@@ -113,22 +112,10 @@ def load(path):
     lib.raster_fused.restype = i
     lib.raster_error_string.argtypes = [i]
     lib.raster_error_string.restype = ctypes.c_char_p
-    lib.raster_subtile.argtypes = [ip]
-    lib.raster_subtile.restype = None
+    if probe:
+        lib.raster_set_probe.argtypes = [p, p]
+        lib.raster_set_probe.restype = i
     return lib
-
-
-@functools.cache
-def _library():
-    return load(build()[0])
-
-
-def subtile(lib):
-    """(rows, columns) of the sub-tile one kernel block covers, and the
-    block's warps."""
-    hww = (ctypes.c_int * 3)()
-    lib.raster_subtile(hww)
-    return (hww[0], hww[1]), hww[2]
 
 
 def _plane_layout(spec):
@@ -224,38 +211,28 @@ def rasterize_fused(rec1, tris1, starts1, rec2, tris2, starts2, *, tile_h, tile_
 
 
 def _check_pass(records, tris, starts, num_tiles):
-    for name, t, dtype, ndim in (("records", records, torch.float32, 2),
-                                 ("tris", tris, torch.int32, 1),
+    dev = records.device
+    for name, t, dtype, ndim in (("records", records, torch.float32, 2), ("tris", tris, torch.int32, 1),
                                  ("starts", starts, torch.int32, 1)):
-        if t is None and name == "tris":
-            continue
-        if t.device != records.device or t.dtype != dtype or t.ndim != ndim:
-            raise ValueError(
-                f"{name}: expected a {ndim}-D {dtype} tensor on {records.device}, "
-                f"got {t.ndim}-D {t.dtype} on {t.device}"
-            )
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if records.shape[1] < BASE_LANES or records.shape[0] >= 1 << 24:
-        raise ValueError(f"records must be (rows < 2^24, >= {BASE_LANES}) f32, got {tuple(records.shape)}")
+        if t is not None and (t.dtype != dtype or t.ndim != ndim or t.device != dev
+                              or not t.is_contiguous()):
+            raise ValueError(f"{name}: expected a contiguous {ndim}-D {dtype} tensor on {dev}, "
+                             f"got {t.ndim}-D {t.dtype} on {t.device}")
+    rows, lanes = records.shape
+    if lanes < BASE_LANES or rows >= 1 << 24:
+        raise ValueError(f"records must be (rows < 2^24, >= {BASE_LANES}) f32, got {(rows, lanes)}")
     if starts.shape[0] != num_tiles + 1:
         raise ValueError(f"starts must have {num_tiles + 1} entries, got {starts.shape[0]}")
-    slots = records.shape[0] if tris is None else tris.shape[0]
-    if slots == 0 or num_tiles == 0:
+    if num_tiles == 0 or (rows if tris is None else tris.shape[0]) == 0:
         raise ValueError("rasterize needs at least one tile and one CSR slot")
 
 
-def _check_tile(lib, tile_h, tile_w):
-    (sub_h, sub_w), warps = subtile(lib)
-    if ((sub_h, sub_w), warps) != (SUBTILE, _WARPS):
-        raise RuntimeError(f"the library's {sub_h}x{sub_w} sub-tile of {warps} warps is not "
-                           f"SUBTILE {SUBTILE} of {_WARPS}")
-    if tile_h % sub_h or tile_w % sub_w:
+def _check_tile(tile_h, tile_w):
+    if tile_h % SUBTILE[0] or tile_w % SUBTILE[1]:
         raise ValueError(
-            f"tile {tile_h}x{tile_w} unsupported: the kernel's blocks cover {sub_h}x{sub_w} "
+            f"tile {tile_h}x{tile_w} unsupported: the kernel's blocks cover {SUBTILE[0]}x{SUBTILE[1]} "
             "sub-tiles, so tile_h and tile_w must be multiples of them"
         )
-    return sub_w
 
 
 def _ptr(t):
@@ -269,14 +246,14 @@ def _raise_on(err, lib, what):
 
 def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile_offset,
             emit_idx, emit_z, spec, emit_strips, idx_dtype):
-    planes = _plane_layout(spec)
+    planes = _plane_layout(spec) if spec else []
     _check_modes(records, planes, tile_w, emit_strips, idx_dtype, emit_idx, emit_z)
     if len(planes) > MAX_PLANES:
         raise ValueError(f"{len(planes)} varying planes; the kernel emits at most {MAX_PLANES}")
     num_tiles = tiles_y * tiles_x
     _check_pass(records, tris, starts, num_tiles)
+    _check_tile(tile_h, tile_w)
     lib = _library()
-    sub_w = _check_tile(lib, tile_h, tile_w)
 
     shape = (tiles_y * tile_h, tiles_x * tile_w)
     dev = records.device
@@ -289,11 +266,11 @@ def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile
     if emit_strips:
         # Strips that cross a sub-tile border are combined with atomicMax.
         strips = torch.empty((shape[0], shape[1] // emit_strips), dtype=torch.int32, device=dev)
-        if sub_w % emit_strips:
+        if SUBTILE[1] % emit_strips:
             strips.fill_(-1)
-    desc = (ctypes.c_int * (5 * max(1, len(planes))))(
+    desc = (ctypes.c_int * (5 * len(planes)))(
         *[v for m, lane, _p, w, h, t in planes for v in (_PLANE_MODES[m], lane, w, h, t)]
-    )
+    ) if planes else None
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.raster_depth(
@@ -304,9 +281,10 @@ def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile
         )
     _raise_on(err, lib, "raster_depth")
     LAUNCHES["raster"] += 1
-    for mode, on in (("gathered", tris is None), ("int16", idx is not None and idx_t == torch.int16),
-                     ("strips", emit_strips > 0), ("planes", bool(planes))):
-        LAUNCHES[mode] += on
+    LAUNCHES["gathered"] += tris is None
+    LAUNCHES["int16"] += idx is not None and idx_t == torch.int16
+    LAUNCHES["strips"] += emit_strips > 0
+    LAUNCHES["planes"] += bool(planes)
     return z, idx, varys, strips
 
 
@@ -317,8 +295,8 @@ def _launch_fused(rec1, tris1, starts1, rec2, tris2, starts2, *, tile_h, tile_w,
     _check_pass(rec2, tris2, starts2, num_tiles)
     if rec2.device != rec1.device:
         raise ValueError("both passes must lie on one device")
+    _check_tile(tile_h, tile_w)
     lib = _library()
-    _check_tile(lib, tile_h, tile_w)
     shape = (tiles_y * tile_h, tiles_x * tile_w)
     shadow_z = torch.empty(shape, dtype=torch.float32, device=rec1.device)
     idx = torch.empty(shape, dtype=torch.int32, device=rec1.device)
@@ -515,27 +493,21 @@ def _may_cover(r, exact, x0, x1, y0, y1):
 
 def rect_offsets(device=None):
     """(columns, rows) i64: the top-left of each 4x8 rect of a SUBTILE block
-    within it.  Rect r is step j = r % P of warp w = r // P (csrc/raster.cu
-    rect_col, rect_row; P rects per warp, W warps): for P = 1, rect (w //
-    C, w % C) of the sub-tile's two rows of C rects; else row j // (P / 2),
-    column ((w + W / 2 * row) mod W) + W (j mod P / 2).  Neighbouring rects
-    belong to different warps."""
-    n_rects = SUBTILE[0] // 4 * (SUBTILE[1] // 8)
-    per = n_rects // _WARPS
-    r = torch.arange(n_rects, device=device)
-    w, j = r // per, r % per
-    if per == 1:
-        return 8 * (w % (n_rects // 2)), 4 * (w // (n_rects // 2))
-    row = j // (per // 2)
-    return 8 * ((w + _WARPS // 2 * row) % _WARPS + _WARPS * (j % (per // 2))), 4 * row
+    within it, rect w being warp w's (csrc/raster.cu rect_col, rect_row):
+    (w // C, w % C) of the sub-tile's two rows of C rects."""
+    per_row = SUBTILE[1] // 8
+    w = torch.arange(SUBTILE[0] // 4 * per_row, device=device)
+    return 8 * (w % per_row), 4 * (w // per_row)
 
 
 def cull_masks(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile_offset=0):
-    """The kernel's cull (csrc/raster.cu) in plain torch, for accounting and
-    for testing it: for every CSR slot in [starts[0], starts[-1]) and every
-    SUBTILE block of the slot's tile (row-major), the 4x8 rects of the
-    block (rect_offsets) that the kernel walks the slot's record on (none
-    where the block cull drops it).
+    """A model in plain torch of the kernel's cull (csrc/raster.cu
+    exact_over, may_cover and the note there), for accounting and tests:
+    for every CSR slot in [starts[0], starts[-1]) and every SUBTILE block
+    of the slot's tile (row-major), the 4x8 rects of the block
+    (rect_offsets) that the kernel walks the slot's record on (none where
+    the block cull drops it).  chip_smoke.py holds it to the masks the
+    kernel computes (raster_probe.kernel_masks).
 
     Returns (tile (S,) i64, masks (S, blocks per tile, rects per block) bool)."""
     sub_h, sub_w = SUBTILE

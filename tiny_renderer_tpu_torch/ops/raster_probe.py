@@ -1,31 +1,26 @@
-"""Probes of the raster kernel on a GPU: design variants and per-block phase times.
+"""Probes of the raster kernel on a GPU, through its probe build.
 
-    python -m tiny_renderer_tpu_torch.ops.raster_probe variants kSubW=32,kWarps=4 kSubW=128,kWarps=8
-    python -m tiny_renderer_tpu_torch.ops.raster_probe phases [kSubW=32,kWarps=4]
+    python -m tiny_renderer_tpu_torch.ops.raster_probe
 
-Both compile copies of csrc/raster.cu with some ``constexpr int`` constants
-replaced (``kSubW``, ``kWarps``, ``kUnroll``; none given: the source as it
-is) into BUILD_DIR/probe/, check each copy against the twin on the flagship
-stand-in's two passes at 800x800 (bit for bit), and print times beside the
-card's name and power limit.
-
-``variants`` times the light pass (depth only), the camera pass (index
-only), K2 and a bin tile of 2,000 small triangles (models.stress "hot"):
-device ms per launch by CUDA events with the launch queue held full, each
-variant twice, in turns.  ``phases`` adds %globaltimer reads at the walk's
-block barriers and prints, per pass, when each block ran and how long its
-staging + sub-tile cull, rect masks and walk took (block barriers added
-for the probe, so the phases are upper bounds), for the blocks that
-finished last.
+The probe build is csrc/raster.cu compiled with -DRASTER_PROBE
+(``raster_cuda.build(probe=True)``): the same kernels, with the PROBE_*
+markers of the source switched on.  Run as a script, this checks the probe
+build against the twin on the flagship stand-in's two passes at 800x800
+and a bin tile of 2,000 small triangles (models.stress "hot"), bit for
+bit, then prints, per pass, when each block ran and how long its staging +
+sub-tile cull, rect masks and walk took (%globaltimer at the walk's block
+barriers; the probe adds a barrier after each chunk's walk, so the phases
+are upper bounds) for the blocks that finished last, beside the card's name
+and power limit.  ``kernel_masks`` reads the rect mask the kernel computes
+for each staged record in each block, which chip_smoke.py holds to
+``raster_cuda.cull_masks``.
 """
 
 from __future__ import annotations
 
-import ctypes
-import re
+import contextlib
 import subprocess
 import sys
-import time
 from unittest import mock
 
 import numpy as np
@@ -41,99 +36,42 @@ from .binning import bin_triangles
 from .vertex import triangle_setup
 
 VIEW = ([0.3, 0.0, 0.95], [0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])  # chip_smoke.py's
-
-_PROBES = """
-__device__ unsigned long long* g_probe;
-__device__ __forceinline__ unsigned long long probe_now() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-#define PROBE_SLOT(s) g_probe[((size_t)blockIdx.y * gridDim.x + blockIdx.x) * 8 + (s)]
-#define PROBE_BEGIN(s) if (threadIdx.x == 0 && g_probe) { PROBE_SLOT(s) -= probe_now(); }
-#define PROBE_END(s) if (threadIdx.x == 0 && g_probe) { PROBE_SLOT(s) += probe_now(); }
-"""
-PHASES = ("total", "stage", "rect", "walk")  # probe slots 0-3; 4 and 5: block start and end
+PHASES = ("total", "stage", "rect", "walk")  # probe_times slots 0-3; 4 and 5: block start and end
 
 
-def _sub(src, old, new, count=1):
-    if src.count(old) != count:
-        raise RuntimeError(f"raster.cu changed: {old.strip()[:60]!r} found {src.count(old)} times")
-    return src.replace(old, new)
+@contextlib.contextmanager
+def probing(times=None, masks=None):
+    """Context in which raster_cuda's wrappers launch the probe build, its
+    probes writing into `times` and `masks` (device tensors, csrc/raster.cu
+    probe_times and probe_masks; None: off)."""
+    lib = raster_cuda._library(probe=True)
+    ptr = [None if t is None else t.data_ptr() for t in (times, masks)]
+    raster_cuda._raise_on(lib.raster_set_probe(*ptr), lib, "raster_set_probe")
+    try:
+        with mock.patch.object(raster_cuda, "_library", lambda: lib):
+            yield
+    finally:
+        torch.cuda.synchronize()
+        raster_cuda._raise_on(lib.raster_set_probe(None, None), lib, "raster_set_probe")
 
 
-def variant_source(consts, probes=False):
-    """csrc/raster.cu with `consts` ({name: int}) replaced and, with
-    probes, the phase probes added."""
-    src = raster_cuda.SOURCE.read_text()
-    for name, value in consts.items():
-        src, n = re.subn(rf"constexpr int {name} = \d+;", f"constexpr int {name} = {value};", src)
-        if n != 1:
-            raise RuntimeError(f"no constant {name} in raster.cu")
-    if not probes:
-        return src
-    src = _sub(src, "#include <cuda_runtime.h>\n", "#include <cuda_runtime.h>\n" + _PROBES)
-    src = _sub(src, "    __syncthreads();  // the previous chunk is consumed\n",
-               "    __syncthreads();  // the previous chunk is consumed\n    PROBE_BEGIN(1)\n")
-    src = _sub(src, "    __syncthreads();\n    // 2. Rect masks",
-               "    __syncthreads();\n    PROBE_END(1) PROBE_BEGIN(2)\n    // 2. Rect masks")
-    src = _sub(src, "    __syncthreads();\n    // 3. The walk",
-               "    __syncthreads();\n    PROBE_END(2) PROBE_BEGIN(3)\n    // 3. The walk")
-    head, tail = src.split("// The walk's results into the row-major stash")
-    cut = head.rindex("  }\n}\n")  # the end of depth_walk's chunk loop
-    src = (head[:cut] + "    __syncthreads();\n    PROBE_END(3)\n" + head[cut:]
-           + "// The walk's results into the row-major stash" + tail)
-    src = _sub(src, "  const Block b = block_of(g);\n",
-               "  if (threadIdx.x == 0 && g_probe) { PROBE_SLOT(4) = probe_now(); }\n"
-               "  PROBE_BEGIN(0)\n  const Block b = block_of(g);\n", count=2)
-    src = _sub(src, "  if (kIdx && out.strips) emit_strips(g, b, sm, out.strips, out.strip_len);\n}",
-               "  if (kIdx && out.strips) emit_strips(g, b, sm, out.strips, out.strip_len);\n"
-               "  __syncthreads();\n  PROBE_END(0)\n"
-               "  if (threadIdx.x == 0 && g_probe) { PROBE_SLOT(5) = probe_now(); }\n}")
-    return _sub(src, "const char* raster_error_string(int err) {",
-                "void raster_set_probe(void* p) { cudaMemcpyToSymbol(g_probe, &p, sizeof(p)); }\n"
-                "const char* raster_error_string(int err) {")
+def kernel_masks(records, tris, starts, **grid):
+    """The rect mask the K1 kernel computes for each CSR slot in
+    [starts[0], starts[-1]) in each SUBTILE block of the slot's tile: (S,
+    blocks per tile) i64, bit r for rect r (raster_cuda.rect_offsets)."""
+    subs = grid["tile_h"] // raster_cuda.SUBTILE[0] * (grid["tile_w"] // raster_cuda.SUBTILE[1])
+    slots = records.shape[0] if tris is None else tris.shape[0]
+    out = torch.zeros((slots, subs), dtype=torch.int32, device=records.device)
+    with probing(masks=out):
+        raster_cuda.rasterize(records, tris, starts, **grid, emit_idx=False)
+    return out[int(starts[0]):int(starts[-1])].long()
 
 
-def build_variant(consts, probes=False):
-    """(library, sub-tile (rows, columns), warps, ptxas lines) of a variant."""
-    out_dir = raster_cuda.BUILD_DIR / "probe"
-    out_dir.mkdir(parents=True, exist_ok=True)
-    tag = "_".join(f"{k}{v}" for k, v in consts.items()) or "source"
-    path = out_dir / f"raster_{tag}{'_probes' if probes else ''}.cu"
-    path.write_text(variant_source(consts, probes))
-    so, _, log = raster_cuda.build(source=path)
-    lib = raster_cuda.load(so)
-    if probes:
-        lib.raster_set_probe.argtypes = [ctypes.c_void_p]
-        lib.raster_set_probe.restype = None
-    sub, warps = raster_cuda.subtile(lib)
-    return lib, sub, warps, [ln.strip() for ln in log.splitlines() if "registers" in ln]
-
-
-def using(lib, sub, warps):
-    """Context in which raster_cuda launches `lib`'s kernels."""
-    return mock.patch.multiple(raster_cuda, _library=lambda: lib, SUBTILE=sub, _WARPS=warps)
-
-
-def held_ms(fn, n=200):
-    """Device ms per call of fn, the launch queue held full (chip_smoke.py)."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n):
-        fn()
-    queued = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(2 * queued * 2e9))
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+def model_masks(records, tris, starts, **grid):
+    """raster_cuda.cull_masks packed as kernel_masks packs the kernel's."""
+    masks = raster_cuda.cull_masks(records, tris, starts, **grid)[1]
+    bit = 1 << torch.arange(masks.shape[-1], device=masks.device)
+    return (masks.long() * bit).sum(-1)
 
 
 def scenes(dev):
@@ -155,83 +93,43 @@ def scenes(dev):
                        (("light", light), ("camera", camera), ("hot", hot))}
 
 
-def _calls(grid, p):
-    return {"light": lambda: raster_cuda.rasterize(*p["light"], **grid, emit_idx=False),
-            "camera": lambda: raster_cuda.rasterize(*p["camera"], **grid, emit_z=False),
-            "fused": lambda: raster_cuda.rasterize_fused(*p["light"], *p["camera"], **grid),
-            "hot": lambda: raster_cuda.rasterize(*p["hot"], **grid)}
-
-
 def _bits(ts):
     return [t.view(torch.int32) if t.dtype == torch.float32 else t for t in ts if t is not None]
 
 
-def check_equal(grid, p, calls):
-    twins = {"light": raster_cuda.rasterize_reference(*p["light"], **grid, emit_idx=False),
-             "camera": raster_cuda.rasterize_reference(*p["camera"], **grid, emit_z=False),
-             "hot": raster_cuda.rasterize_reference(*p["hot"], **grid)}
-    twins["fused"] = (twins["light"][0], twins["camera"][1])
-    for name, fn in calls.items():
-        got = fn()
-        torch.cuda.synchronize()
-        if not all(torch.equal(a, b) for a, b in zip(_bits(got), _bits(twins[name]))):
-            raise AssertionError(f"{name}: the variant differs from the twin")
-
-
-def parse(arg):
-    return {k: int(v) for k, v in (kv.split("=") for kv in arg.split(",") if kv)}
-
-
-def main(argv):
+def main():
     if not torch.cuda.is_available():
         raise SystemExit("raster_probe needs a CUDA GPU")
-    mode, args = argv[0], argv[1:]
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     print(smi, flush=True)
     dev = torch.device("cuda", 0)
-    cfg, grid, p = scenes(dev)
-    calls = _calls(grid, p)
-    if mode == "variants":
-        built = {a: build_variant(parse(a)) for a in args or [""]}
-        for a, (_, sub, warps, regs) in built.items():
-            print(f"[{a or 'source'}] sub-tile {sub[0]}x{sub[1]}, {warps} warps; ptxas: {regs}", flush=True)
-        for rnd in range(2):
-            for a in (list(built) if rnd == 0 else list(built)[::-1]):
-                with using(*built[a][:3]):
-                    check_equal(grid, p, calls)
-                    ms = {k: held_ms(fn) for k, fn in calls.items()}
-                print(f"[{a or 'source'}] round {rnd}: bit-identical to the twin; ms per launch "
-                      + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()) + f"  [{smi}]", flush=True)
-    elif mode == "phases":
-        lib, sub, warps, regs = build_variant(parse(args[0]) if args else {}, probes=True)
-        nbx = cfg.padded_width // sub[1]
-        blocks = cfg.padded_height // sub[0] * nbx
-        with using(lib, sub, warps):
-            check_equal(grid, p, calls)
-            for name in ("light", "camera", "hot"):
-                probe = torch.zeros((blocks, 8), dtype=torch.int64, device=dev)
-                lib.raster_set_probe(probe.data_ptr())
-                calls[name]()
-                torch.cuda.synchronize()
-                lib.raster_set_probe(None)
-                t = probe.cpu().numpy().astype(np.float64)
-                start = (t[:, 4] - t[:, 4].min()) / 1e3
-                end = (t[:, 5] - t[:, 4].min()) / 1e3
-                us = t[:, :4] / 1e3
-                busy = us[:, 3] > 0
-                print(f"[{name}] {blocks} blocks of {sub[0]}x{sub[1]}, {int(busy.sum())} walked a record; "
-                      f"span {end.max():.2f} us; those started at up to {start[busy].max():.2f} us; "
-                      f"median block {np.median(us[:, 0]):.2f} us  [{smi}]", flush=True)
-                for b in np.argsort(-end)[:5]:
-                    y, x = divmod(int(b), nbx)
-                    print(f"[{name}]   block ({y}, {x}) tile ({y * sub[0] // cfg.tile_h}, "
-                          f"{x * sub[1] // cfg.tile_w}): start {start[b]:.2f}, end {end[b]:.2f} us; "
-                          + ", ".join(f"{k} {v:.2f}" for k, v in zip(PHASES, us[b])) + " us", flush=True)
-    else:
-        raise SystemExit(f"unknown mode {mode!r}: variants or phases")
+    cfg, grid, passes = scenes(dev)
+    sub_h, sub_w = raster_cuda.SUBTILE
+    nbx = cfg.padded_width // sub_w
+    blocks = cfg.padded_height // sub_h * nbx
+    for name, binned in passes.items():
+        times = torch.zeros((blocks, 8), dtype=torch.int64, device=dev)
+        with probing(times=times):
+            got = raster_cuda.rasterize(*binned, **grid)
+        want = raster_cuda.rasterize_reference(*binned, **grid)
+        if not all(torch.equal(a, b) for a, b in zip(_bits(got), _bits(want))):
+            raise AssertionError(f"{name}: the probe build differs from the twin")
+        t = times.cpu().numpy().astype(np.float64)
+        start = (t[:, 4] - t[:, 4].min()) / 1e3
+        end = (t[:, 5] - t[:, 4].min()) / 1e3
+        us = t[:, :4] / 1e3
+        busy = us[:, 3] > 0
+        print(f"[{name}] bit-identical to the twin; {blocks} blocks of {sub_h}x{sub_w}, {int(busy.sum())} "
+              f"walked a record; span {end.max():.2f} us; those started at up to {start[busy].max():.2f} us; "
+              f"median block {np.median(us[:, 0]):.2f} us  [{smi}]", flush=True)
+        for b in np.argsort(-end)[:5]:
+            y, x = divmod(int(b), nbx)
+            print(f"[{name}]   block ({y}, {x}) tile ({y * sub_h // cfg.tile_h}, {x * sub_w // cfg.tile_w}): "
+                  f"start {start[b]:.2f}, end {end[b]:.2f} us; "
+                  + ", ".join(f"{k} {v:.2f}" for k, v in zip(PHASES, us[b])) + " us", flush=True)
     return 0
 
 
 if __name__ == "__main__":
-    sys.exit(main(sys.argv[1:]))
+    sys.exit(main())
