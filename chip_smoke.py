@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the torch port's shadow frame path on one NVIDIA GPU and check it.
+"""Drive the torch port's frame paths (all seven pipelines) on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; needs one CUDA GPU
 
@@ -17,11 +17,17 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              borders, -0.0 against +0.0 depths), bit-identical (float
              outputs compared as bits): K1 phase 1 (z, idx, z+idx), the
              gathered record layout, the int16 index target, the strip plane
-             (SL 16, and 64 and 24 across sub-tile borders), phase 2 with
-             shadow's kernel spec (tex_tile 0 and 16) and with a spec of
-             const and interp planes, K2 (both passes in one launch), and
+             (SL 8, 16, and 64 and 24 across sub-tile borders), phase 2
+             with shadow's kernel spec (tex_tile 0 and 16) and with a spec
+             of const and interp planes, K2 (both passes in one launch), and
              the all-on knob config's two launches on its 16x128 tiles
              (gathered + int16 + strips + planes in one camera launch).
+             On the random soups and the flagship also phase 2 under the
+             other pipelines' specs: normal_map's, specular's and darboux's
+             kernel specs (texel index over 2 or 3 packed maps, darboux's
+             3-component local_z) at tex_tile 0 and 16, darboux's 15-plane
+             reference spec with its four consts (maps of mixed dims), and
+             occlusion's zfrag-only spec.
              On each scene's two passes, the rect masks the kernel computes
              (its probe build) equal raster_cuda.cull_masks, the torch
              model of the cull that the work counts below come from.
@@ -30,25 +36,44 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              per frame, no black frame, no overflow, frames bit-identical
              to the same burst with the twin as raster, and a frame within
              the 0.5% tie budget of the same frame rendered on the CPU.
-5. knobs   — the same burst (first 4 angles) under each raster knob config
+5. pipelines — for each of the six other pipelines (default, phong,
+             normal_map, specular, darboux, occlusion) at 800x800, default
+             config, on the flagship scene with seeded random normal,
+             tangent-normal and specular maps: Scene.render with z and an
+             8-frame burst, one K1 launch per frame (two for occlusion), no
+             black frame, no overflow, render and burst bit-identical to the
+             twin raster, and the frame within the 0.5% tie budget of the
+             same frame on the CPU.
+6. knobs   — the same shadow burst (first 4 angles) under each raster knob config
              (fuse_passes, strip_mask + strip_planes, idx_int16,
              csr_indirect=False + strip_mask, compact_shade=False,
              shadow_tile=8 + fuse_passes, all on): frames bit-identical to
              the default burst, with the launches each config implies;
              compact_shade=False also through Scene.render (z, frame, shadow
-             equal to the default Scene.render).
-6. timing  — kernel and twin ms per launch per mode at the flagship shapes
+             equal to the default Scene.render).  Then 4 frames of each
+             other pipeline under compact_shade=False (darboux through its
+             const gather), strip_mask + strip_planes (all but darboux) and
+             fuse_passes (occlusion): each equal to that pipeline's default
+             burst, with the launches each config implies; and darboux
+             with 512^2 normal maps, whose full-screen shade (the 15-plane
+             reference spec) must equal its strip shade (per-map samplers).
+7. timing  — kernel and twin ms per launch per mode at the flagship shapes
              (CUDA events around launches paced by the host, as the times
              before the redesign were taken, and the kernel's device time
              with the launch queue held full), beside those earlier times
              (PR2_MS); the cull's work per block; burst
-             ms per frame of each knob config beside the default (host
-             clock after warm-up, configs in turns), beside the card's name
-             and power limit.
+             ms per frame of each knob config beside the default, and of
+             each of the seven pipelines at the default config (host clock
+             after warm-up, configs in turns); phase 2 under darboux's
+             4-plane and 15-plane specs (paced, twin and device times)
+             beside its bound;
+             beside the card's name and power limit.
 
-Launch counts are set to 0 just before each path is driven and read just
-after.  Prints a JSON line of kernel results (time paced by the host as
-"ms", device time as "device_ms", launches, error, and the bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
+Each phase prints its seconds.  Launch counts are set to 0 just before each
+path is driven and read just after.  Prints a JSON line of kernel results
+(time paced by the host as "ms", device time as "device_ms", launches in
+all the paths driven and by pipeline, the pipelines whose paths launched
+it, error, and the bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
 over 3.35 TB/s, counted from this run's binned inputs, with phase 1's
 operations only at the pixels inside each candidate's bbox), then, last, the
 device JSON line.  The scene is diablo when assets/diablo exists, else a UV
@@ -71,6 +96,9 @@ import torch
 
 N_FRAMES = 16
 N_KNOB_FRAMES = 4
+N_PIPE_FRAMES = 8
+PIPELINE_ORDER = ("default", "phong", "normal_map", "specular", "darboux", "shadow", "occlusion")
+NEW_PIPELINES = tuple(p for p in PIPELINE_ORDER if p != "shadow")
 DEVICE = "cuda"
 VIEW = ([0.3, 0.0, 0.95], [0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
 MODES = {"z": dict(emit_z=True, emit_idx=False), "idx": dict(emit_z=False, emit_idx=True),
@@ -92,6 +120,30 @@ KNOBS = {
                     csr_indirect=False, tile_h=16, tex_tile=16, shadow_tile=16),
                {"raster": 2, "gathered": 2, "int16": 1, "strips": 1, "planes": 1}),
 }
+
+
+def pipeline_launches(name):
+    """K1 launches per frame of a pipeline's default burst: the camera pass,
+    and the light pass first for the two-pass pipelines."""
+    return {"raster": 2 if name in ("shadow", "occlusion") else 1}
+
+
+def pipeline_knobs(name):
+    """The knob configs the knob phase drives for one of the other
+    pipelines and the launches each makes per frame (every other count 0):
+    the full-screen shade, the strip plane + varying planes for the strip
+    shade (not darboux, whose per-triangle consts keep the attribute
+    gather), and K2 for occlusion."""
+    cam = pipeline_launches(name)
+    knobs = {"fullplane": (dict(compact_shade=False), {**cam, "planes": 1})}
+    if name != "darboux":
+        knobs["mask+planes"] = (dict(strip_mask=True, strip_planes=True),
+                                {**cam, "strips": 1, "planes": 1})
+    if name == "occlusion":
+        knobs["fuse"] = (dict(fuse_passes=True), {"fused": 1})
+    return knobs
+
+
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 OPS_PER_CANDIDATE = 26  # phase 1 flops per (pixel, candidate) test, csrc/raster.cu
@@ -213,7 +265,15 @@ def main() -> int:
     from tiny_renderer_tpu_torch.ops.binning import bin_triangles
     from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
     from tiny_renderer_tpu_torch.pipelines.frame import make_burst_fn, render_frame
-    from tiny_renderer_tpu_torch.pipelines.shaders import kernel_varying_spec
+    from tiny_renderer_tpu_torch.pipelines.shaders import kernel_varying_spec, num_planes
+
+    clock = [time.perf_counter()]
+
+    def lap(name):
+        """Print the seconds since the previous phase ended."""
+        now = time.perf_counter()
+        phase(name, f"took {now - clock[0]:.1f} s")
+        clock[0] = now
 
     dev = torch.device(DEVICE, 0)
     kind = torch.cuda.get_device_name(0)
@@ -223,6 +283,7 @@ def main() -> int:
     ).stdout.strip()
     print(smi, flush=True)
     phase("device", f"{kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    lap("device")
 
     # -- 2. build -------------------------------------------------------------
     with ThreadPoolExecutor(2) as pool:  # one nvcc each, started together
@@ -233,6 +294,7 @@ def main() -> int:
     for line in log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             phase("build", line.strip())
+    lap("build")
 
     cfg = RenderConfig().resolve("shadow")  # 800x800, the default config
     grid = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)
@@ -242,6 +304,21 @@ def main() -> int:
     tex = {"texture": torch.from_numpy(np.ascontiguousarray(model.texture))}
     specs = {f"planes-tex{t}": kernel_varying_spec("shadow", tex, tile=t) for t in (0, 16)}
     specs["planes-const"] = CONST_SPEC
+    # The other pipelines' kernel specs.  The flagship's maps share 1024^2
+    # dims: a texel index over 2 or 3 packed maps, and darboux's local_z
+    # (its consts dropped).  With the normal maps at another size darboux
+    # keeps its 15-plane reference spec, consts included; kernel_varying_spec
+    # reads only the maps' shapes.
+    maps = {n: tex["texture"] for n in ("normal_map", "normal_map_tangent", "specular_map")}
+    half = torch.empty((512, 512, 3), dtype=torch.uint8)
+    pipe_specs = {f"{p}-tex{t}": kernel_varying_spec(p, {**tex, **maps}, tile=t)
+                  for p in ("normal_map", "specular", "darboux") for t in (0, 16)}
+    pipe_specs["darboux-mixed"] = kernel_varying_spec(
+        "darboux", {**tex, **maps, "normal_map": half, "normal_map_tangent": half})
+    pipe_specs["occlusion"] = kernel_varying_spec("occlusion", tex)
+    check(num_planes(pipe_specs["darboux-tex16"]) == 4 and num_planes(pipe_specs["darboux-mixed"]) == 15
+          and sum(m == "const" for _, _, m in pipe_specs["darboux-mixed"]) == 4,
+          f"darboux kernel specs {pipe_specs['darboux-tex16']}, {pipe_specs['darboux-mixed']}")
 
     eye = torch.eye(4, device=dev)
 
@@ -337,7 +414,7 @@ def main() -> int:
             k1("gathered", f"{cname}/{pname}/gathered+planes", passes_of(gathered_cfg,
                specs["planes-tex16"])[pname], emit_z=False, spec=specs["planes-tex16"])
             k1("int16", f"{cname}/{pname}/int16", base[pname], emit_z=False, idx_dtype="int16")
-            for sl in (16, 64):
+            for sl in (8, 16, 64):
                 k1("strips", f"{cname}/{pname}/strips{sl}", base[pname], emit_z=False, emit_strips=sl)
         k1("strips", f"{cname}/camera/strips24@384", passes_of(wide_cfg)["camera"],
            wide_grid, emit_z=False, emit_strips=24)
@@ -345,6 +422,11 @@ def main() -> int:
             sp = passes_of(cfg, spec)
             for pname in ("light", "camera"):
                 k1("planes", f"{cname}/{pname}/{sname}", sp[pname], emit_z=False, spec=spec)
+        if cname.startswith("soup") or cname == "flagship":
+            for sname, spec in pipe_specs.items():
+                sp = passes_of(cfg, spec)
+                for pname in ("light", "camera"):
+                    k1("planes", f"{cname}/{pname}/{sname}", sp[pname], emit_z=False, spec=spec)
         k1("gathered", f"{cname}/light/all-on", passes_of(allon_cfg)["light"], allon_grid,
            emit_idx=False)
         k1("planes", f"{cname}/camera/all-on", passes_of(allon_cfg, allon_spec)["camera"],
@@ -368,6 +450,7 @@ def main() -> int:
     phase("kernel", f"{n_cmp} kernel/twin comparisons bit-identical (tolerance: exact), "
           f"max_abs_err {err}; covered px {covered}; the kernel's rect masks equal "
           f"raster_cuda.cull_masks on all {2 * len(cases)} passes ({n_masks} (slot, block) masks)")
+    lap("kernel")
 
     # -- 4. slice -------------------------------------------------------------
     scene = Scene(model, "shadow", RenderConfig(), device=dev)
@@ -377,6 +460,14 @@ def main() -> int:
     ligs = torch.tensor(-0.6 + 0.03 * np.arange(N_FRAMES), dtype=torch.float32, device=dev)
     burst = make_burst_fn("shadow", scene.config, keep_frames=True)
     geom, textures = scene._geom, scene._textures
+
+    # Launches by kernel mode and pipeline, over every path driven below.
+    mode_paths = {k: {} for k in raster_cuda.LAUNCHES}
+
+    def record(path, got):
+        for k, n in got.items():
+            if n:
+                mode_paths[k][path] = mode_paths[k].get(path, 0) + n
 
     raster_cuda.reset_launches()
     out1 = scene.render()
@@ -389,6 +480,7 @@ def main() -> int:
     check(launches - after_render["raster"] == 2 * N_FRAMES,
           f"burst made {launches - after_render['raster']} kernel launches, expected {2 * N_FRAMES}")
     check(all(v == 0 for k, v in counts.items() if k != "raster"), f"default path launched {counts}")
+    record("shadow", counts)
     frames = out["frames"]
     check(frames.shape == (N_FRAMES, cfg.height, cfg.width, 3) and frames.dtype == torch.uint8,
           f"burst frames {tuple(frames.shape)} {frames.dtype}")
@@ -420,9 +512,67 @@ def main() -> int:
           f"({2 * N_FRAMES} in the burst), lit share {min(lit.tolist()):.4f}-{max(lit.tolist()):.4f}, "
           f"frames bit-identical to the twin raster; vs the CPU frame: {frame_diff:.6%} of pixels "
           f"differ, shadow coverage differs on {shadow_diff} px")
+    lap("slice")
 
-    # -- 5. knobs -------------------------------------------------------------
-    knob_counts, knob_bursts = {}, {}
+    # -- 5. pipelines ---------------------------------------------------------
+    # The stand-in's normal and specular maps are flat: seeded random ones
+    # make the normal-mapped pipelines do varied work.
+    rng = np.random.default_rng(7)
+    pmodel = dataclasses.replace(model, **{
+        n: rng.integers(0, 256, model.texture.shape, dtype=np.uint8)
+        for n in ("normal_map", "normal_map_tangent", "specular_map")})
+    pcams, pligs = cams[:N_PIPE_FRAMES], ligs[:N_PIPE_FRAMES]
+    twin = (mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference),
+            mock.patch.object(raster_cuda, "rasterize_fused", raster_cuda.rasterize_fused_reference))
+    pipe_runs = {}  # name -> (burst fn, scene, burst frames)
+    for name in NEW_PIPELINES:
+        per_frame = pipeline_launches(name)
+        psc = Scene(pmodel, name, RenderConfig(), device=dev)
+        psc.set_light_direction(VIEW[0])
+        psc.set_camera(*VIEW[1:])
+        pburst = make_burst_fn(name, psc.config, keep_frames=True)
+        raster_cuda.reset_launches()
+        r1 = psc.render()
+        torch.cuda.synchronize()
+        got_render = dict(raster_cuda.LAUNCHES)
+        raster_cuda.reset_launches()
+        pout = pburst(psc._geom, psc._textures, pcams, pligs)
+        torch.cuda.synchronize()
+        got_burst = dict(raster_cuda.LAUNCHES)
+        want = {k: per_frame.get(k, 0) for k in got_render}
+        check(got_render == want, f"{name}: Scene.render launches {got_render}, expected {want}")
+        want = {k: N_PIPE_FRAMES * v for k, v in want.items()}
+        check(got_burst == want, f"{name}: burst launches {got_burst}, expected {want}")
+        record(name, got_render)
+        record(name, got_burst)
+        pframes = pout["frames"]
+        check(pframes.shape == (N_PIPE_FRAMES, cfg.height, cfg.width, 3), f"{name}: frames {pframes.shape}")
+        plit = (pframes > 0).any(-1).flatten(1).float().mean(1)
+        check(bool((plit > 0).all()), f"{name}: a burst frame is all black: lit share {plit.tolist()}")
+        check(not bool(pout["overflow"].any()) and not psc.overflowed, f"{name}: a frame overflowed")
+        check(bool(torch.isfinite(r1["z"][r1["z"] > ml.F32_MIN]).all()), f"{name}: non-finite z")
+        with twin[0], twin[1]:
+            tout = pburst(psc._geom, psc._textures, pcams, pligs)
+            trender = psc.render()
+        check(raster_cuda.LAUNCHES == got_burst, f"{name}: the twin burst launched a kernel")
+        check(torch.equal(tout["frames"], pframes), f"{name}: burst frames differ from the twin-raster burst")
+        check(torch.equal(tout["checksums"], pout["checksums"]), f"{name}: burst checksums differ")
+        for k in ("frame", "z", "shadow"):
+            check(torch.equal(trender[k], r1[k]), f"{name}: Scene.render {k} differs from the twin raster")
+        pcpu = render_frame({k: v.cpu() for k, v in psc._geom.items()},
+                            {k: v.cpu() for k, v in psc._textures.items()}, *cpu_view,
+                            pipeline=name, config=psc.config)
+        pdiff = float((pcpu["frame"] != r1["frame"].cpu()).any(-1).float().mean())
+        check(pdiff < 0.005, f"{name}: GPU frame differs from the CPU frame on {pdiff:.4%} of pixels")
+        pipe_runs[name] = (pburst, psc, pframes)
+        phase("pipelines", f"{name}: Scene.render {got_render['raster']} + burst {got_burst['raster']} "
+              f"K1 launches ({per_frame['raster']} per frame), lit share {min(plit.tolist()):.4f}-"
+              f"{max(plit.tolist()):.4f}, render and {N_PIPE_FRAMES}-frame burst bit-identical to the "
+              f"twin raster; vs the CPU frame {pdiff:.6%} of pixels differ")
+    lap("pipelines")
+
+    # -- 6. knobs -------------------------------------------------------------
+    knob_bursts = {}
     for name, (knobs, per_frame) in KNOBS.items():
         kscene = Scene(model, "shadow", RenderConfig(**knobs), device=dev)
         kburst = make_burst_fn("shadow", kscene.config, keep_frames=True)
@@ -431,7 +581,7 @@ def main() -> int:
         kout = kburst(kscene._geom, kscene._textures, cams[:N_KNOB_FRAMES], ligs[:N_KNOB_FRAMES])
         torch.cuda.synchronize()
         got = dict(raster_cuda.LAUNCHES)
-        knob_counts[name] = got
+        record("shadow", got)
         want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
         check(got == want, f"knob {name}: launches {got}, expected {want}")
         check(torch.equal(kout["frames"], frames[:N_KNOB_FRAMES]),
@@ -450,8 +600,49 @@ def main() -> int:
                 check(torch.equal(kr[k], out1[k]), f"fullplane Scene.render {k} differs from the default")
             msg += f"; Scene.render z, frame, shadow equal to the default (launches {got})"
         phase("knobs", msg)
+    for pname in NEW_PIPELINES:
+        for name, (knobs, per_frame) in pipeline_knobs(pname).items():
+            kscene = Scene(pmodel, pname, RenderConfig(**knobs), device=dev)
+            raster_cuda.reset_launches()
+            kout = make_burst_fn(pname, kscene.config, keep_frames=True)(
+                kscene._geom, kscene._textures, cams[:N_KNOB_FRAMES], ligs[:N_KNOB_FRAMES])
+            torch.cuda.synchronize()
+            got = dict(raster_cuda.LAUNCHES)
+            record(pname, got)
+            want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+            check(got == want, f"{pname} knob {name}: launches {got}, expected {want}")
+            check(torch.equal(kout["frames"], pipe_runs[pname][2][:N_KNOB_FRAMES]),
+                  f"{pname} knob {name}: burst frames differ from the pipeline's default burst")
+            check(not bool(kout["overflow"].any()), f"{pname} knob {name}: a frame overflowed")
+            phase("knobs", f"{pname} {name}: {N_KNOB_FRAMES} frames bit-identical to {pname}'s default "
+                  f"burst, launches {got}")
+    # Darboux with normal maps of another size than the texture: the strip
+    # shade samples map by map, the full-screen shade reads the 15-plane
+    # reference spec, consts included, from the kernel.
+    mmodel = dataclasses.replace(pmodel, **{n: np.ascontiguousarray(getattr(pmodel, n)[:512, :512])
+                                            for n in ("normal_map", "normal_map_tangent")})
+    mixed = {}
+    for name, knobs, per_frame in (("default", {}, {"raster": 1}),
+                                   ("fullplane", dict(compact_shade=False), {"raster": 1, "planes": 1})):
+        msc = Scene(mmodel, "darboux", RenderConfig(**knobs), device=dev)
+        check(num_planes(kernel_varying_spec("darboux", msc._textures)) == 15, "mixed maps: darboux spec")
+        raster_cuda.reset_launches()
+        mout = make_burst_fn("darboux", msc.config, keep_frames=True)(
+            msc._geom, msc._textures, cams[:N_KNOB_FRAMES], ligs[:N_KNOB_FRAMES])
+        torch.cuda.synchronize()
+        got = dict(raster_cuda.LAUNCHES)
+        record("darboux", got)
+        want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+        check(got == want, f"darboux mixed maps {name}: launches {got}, expected {want}")
+        mixed[name] = mout["frames"]
+    check(torch.equal(mixed["fullplane"], mixed["default"]),
+          "darboux mixed maps: the full-screen shade differs from the strip shade")
+    check(bool((mixed["default"] > 0).any()), "darboux mixed maps: black frames")
+    phase("knobs", f"darboux with 512^2 normal maps: {N_KNOB_FRAMES} frames of the full-screen shade "
+          "(15-plane reference spec) bit-identical to the strip shade (per-map samplers)")
+    lap("knobs")
 
-    # -- 6. timing ------------------------------------------------------------
+    # -- 7. timing ------------------------------------------------------------
     def time_launches(fn, n, hold=False):
         """ms per call of fn over n calls, by CUDA events after warm-up: the
         calls as the host paces them, or with hold, the device's work alone
@@ -541,18 +732,28 @@ def main() -> int:
             best = min(best, (time.perf_counter() - t0) * 1e3 / N_FRAMES)
         return best
 
-    order = {"default": (burst, scene), **knob_bursts}
-    for fn, sc in order.values():
-        burst_ms(fn, sc, 1)  # warm-up
-    burst_times = {k: float("inf") for k in order}
-    for rnd in range(2):  # in turns: forward, then backward
-        for k in (list(order) if rnd == 0 else list(order)[::-1]):
-            burst_times[k] = min(burst_times[k], burst_ms(*order[k], 2))
+    def in_turns(order):
+        """Best burst ms/frame of each (burst fn, scene) of `order`: one
+        warm-up burst each, then two rounds of two bursts each, forward,
+        then backward."""
+        for fn, sc in order.values():
+            burst_ms(fn, sc, 1)
+        best = {k: float("inf") for k in order}
+        for rnd in range(2):
+            for k in (list(order) if rnd == 0 else list(order)[::-1]):
+                best[k] = min(best[k], burst_ms(*order[k], 2))
+        return best
+
+    burst_times = in_turns({"default": (burst, scene), **knob_bursts})
     with mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference):
         burst_twin = burst_ms(burst, scene, 1)
-    phase("timing", "burst ms/frame (host clock, best of 4 bursts of "
+    phase("timing", "shadow burst ms/frame (host clock, best of 4 bursts of "
           f"{N_FRAMES}, configs in turns): " + ", ".join(f"{k} {v:.3f}" for k, v in burst_times.items())
           + f"; default with the twin raster {burst_twin:.3f}  [{smi}]")
+    pipe_times = in_turns({p: (burst, scene) if p == "shadow" else pipe_runs[p][:2] for p in PIPELINE_ORDER})
+    phase("timing", "burst ms/frame by pipeline, default config (host clock, best of 4 bursts of "
+          f"{N_FRAMES}, pipelines in turns): " + ", ".join(f"{k} {v:.3f}" for k, v in pipe_times.items())
+          + f"  [{smi}]")
 
     # -- kernel results -------------------------------------------------------
     hp, wp = cfg.padded_height, cfg.padded_width
@@ -580,28 +781,49 @@ def main() -> int:
     }
     phase("timing", "bounds: " + ", ".join(
         f"{k} {v[0]:.6f} ms by {v[1]} ({v[2]} flops, {v[3]} bytes)" for k, v in bounds.items()))
+    for sname in ("darboux-tex16", "darboux-mixed"):
+        spec = pipe_specs[sname]
+        b = passes(flag_geom, cfg, spec)["camera"]
+        kw = dict(emit_z=False, spec=spec)
+        paced, twin_ms, dms = (time_launches(lambda: raster_cuda.rasterize(*b, **grid, **kw), 200),
+                               time_launches(lambda: raster_cuda.rasterize_reference(*b, **grid, **kw), 5),
+                               time_launches(lambda: raster_cuda.rasterize(*b, **grid, **kw), 200, hold=True))
+        planes = raster_cuda._plane_layout(spec)
+        bd = bound([pas(b, "camera")], px * 4 + len(planes) * px * 4, planes, cam_cov)
+        phase("timing", f"phase 2 under {sname} ({len(planes)} planes; camera pass, idx-only): kernel "
+              f"{paced:.4f} ms per launch paced by the host, {dms:.4f} on the device with the launch queue "
+              f"held full; twin {twin_ms:.4f} ms; bound {bd[0]:.6f} ms by {bd[1]} ({bd[2]} flops, "
+              f"{bd[3]} bytes), {bd[0] / dms:.2%} of it (shadow's 3 planes: {ms['planes'][2]:.4f} ms on "
+              f"the device)  [{smi}]")
+    lap("timing")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
     rp = "tiny_renderer_tpu/ops/raster_pallas.py"
     entries = [
         ("raster_depth (K1 phase 1: light pass depth-only + camera pass idx-only, ms per frame)",
-         f"{rp}:167", "depth", counts["raster"],
-         tuple(a + b for a, b in zip(ms["light/z"], ms["camera/idx"]))),
+         f"{rp}:167", "depth", "raster", tuple(a + b for a, b in zip(ms["light/z"], ms["camera/idx"]))),
         ("raster_depth, gathered records (K1 tris=None; camera pass idx-only)", f"{rp}:208",
-         "gathered", knob_counts["nocsr+mask"]["gathered"], ms["gathered"]),
-        ("raster_depth, int16 index target (K1; camera pass)", f"{rp}:231", "int16",
-         knob_counts["i16"]["int16"], ms["int16"]),
-        ("raster_depth, strip plane emit_strips=16 (K1; camera pass)", f"{rp}:236", "strips",
-         knob_counts["mask+planes"]["strips"], ms["strips"]),
+         "gathered", "gathered", ms["gathered"]),
+        ("raster_depth, int16 index target (K1; camera pass)", f"{rp}:231", "int16", "int16", ms["int16"]),
+        ("raster_depth, strip plane emit_strips=SL (K1; camera pass, timed at SL 16; SL 8 on "
+         "occlusion's path)", f"{rp}:236", "strips", "strips", ms["strips"]),
         ("raster_depth, phase 2 varying planes (K1 vary_body; camera pass, shadow kernel spec, "
-         "tex_tile 16)", f"{rp}:257", "planes", knob_counts["fullplane"]["planes"], ms["planes"]),
+         "tex_tile 16)", f"{rp}:257", "planes", "planes", ms["planes"]),
         ("raster_fused (K2: light pass depth + camera pass idx in one launch)", f"{rp}:466",
-         "fused", knob_counts["fuse"]["fused"], ms["fused"]),
+         "fused", "fused", ms["fused"]),
     ]
+
+    def by_pipeline(mode):
+        return {p: mode_paths[mode][p] for p in PIPELINE_ORDER if p in mode_paths[mode]}
+
+    for name, _r, _k, mode, _t in entries:
+        check(mode_paths[mode], f"{name}: no path launched it")
+
     print(json.dumps({"kernels": [{
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
-        "launches": n, "max_abs_err": err[key], "ms": t[0], "device_ms": t[2], "plain_ms": t[1],
-        "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
-    } for name, replaces, key, n, t in entries]}), flush=True)
+        "launches": sum(mode_paths[mode].values()), "launches_by_pipeline": by_pipeline(mode),
+        "pipelines": list(by_pipeline(mode)), "max_abs_err": err[key], "ms": t[0], "device_ms": t[2],
+        "plain_ms": t[1], "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
+    } for name, replaces, key, mode, t in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

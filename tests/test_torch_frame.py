@@ -182,7 +182,7 @@ def test_scene_api_on_cpu(tmp_path):
     seq = scene.render_sequence([0.0, 0.3], [0.0, -0.3])
     assert seq.shape == (2, 64, 128, 3)
     with pytest.raises(ValueError):
-        Scene(model, "phong", device="cpu")
+        Scene(model, "toon", device="cpu")
 
 
 def test_app_writes_png_on_cpu(tmp_path):

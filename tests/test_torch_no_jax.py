@@ -22,6 +22,10 @@ _SCRIPT = textwrap.dedent("""
     scene.set_light_direction([0.3, 0.0, 0.95])
     frame = scene.get_frame_buffer()
     assert frame.shape == (64, 128, 3) and (frame > 0).any()
+    for name in ("darboux", "occlusion"):
+        other = trt.Scene(model, name, trt.RenderConfig(width=128, height=64), device="cpu")
+        other.set_light_direction([0.3, 0.0, 0.95])
+        assert (other.get_frame_buffer() > 0).any(), name
     assert flagship_model().num_triangles == 5096
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tiny_renderer_tpu."))]
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
@@ -34,7 +38,7 @@ def test_package_imports_and_renders_without_jax():
         [sys.executable, "-c", _SCRIPT], cwd=ROOT, capture_output=True, text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert "OK ('shadow',)" in proc.stdout
+    assert "OK ('default', 'phong', 'normal_map', 'specular', 'darboux', 'shadow', 'occlusion')" in proc.stdout
 
 
 def test_package_sources_never_import_jax():

@@ -5,6 +5,9 @@ Renders N frames of a pipeline, optionally orbiting the camera and light
 
   python -m tiny_renderer_tpu_torch.app -s shadow --frames 10 --save out.png
 
+``-s`` takes any of the seven pipelines (default, phong, normal_map,
+specular, darboux, shadow, occlusion).
+
 ``--backend cuda`` (the default) renders on the GPU through the CUDA raster
 kernel; ``--backend cpu`` renders on the CPU through its plain torch twin.
 Without ``-p`` the app loads ``assets/diablo`` when that directory exists,

@@ -38,7 +38,8 @@ class RenderConfig:
     # Specular pipeline constant (shader.rs:521).
     specular_scale: float = 0.6
 
-    # Collapse duplicate shadow-map indices in the occlusion probe (JAX only).
+    # Collapse duplicate shadow-map indices in the occlusion probe (JAX only:
+    # exact, so the port's plain gather renders the same frame either way).
     occlusion_dedup: bool = False
 
     # Raster screen tile: the unit of binning (the port's kernel splits it

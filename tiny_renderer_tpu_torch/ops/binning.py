@@ -83,16 +83,17 @@ def pack_triangle_records(setup, spec=()):
     ]
     for name, comps, mode in spec or ():
         if mode == "interp":
+            a = setup[_INTERP_SOURCES[name]]
             for c in range(comps):
                 for v in range(3):
-                    cols.append(_INTERP_SOURCES[name](setup, c, v))
+                    cols.append(a[:, v] if a.ndim == 2 else a[:, v, c])
         elif mode == "const":
             for c in range(comps):
                 cols.append(setup[_CONST_SOURCES[name]][:, c])
         elif mode.startswith("texidx"):
             for c in range(2):
                 for v in range(3):
-                    cols.append(_INTERP_SOURCES["uv"](setup, c, v))
+                    cols.append(setup["uv"][:, v, c])
     rec = torch.stack(cols, dim=-1)
     pad = record_lanes(spec) - rec.shape[-1]
     return torch.nn.functional.pad(rec, (0, pad))

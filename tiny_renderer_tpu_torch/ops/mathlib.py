@@ -11,8 +11,9 @@ fusion, no TF32), so these functions equal the JAX module run with
   mapped and the value clamped BEFORE the integer conversion, since an
   out-of-range float-to-int conversion is undefined in torch.  ``as u32``
   results are int64 tensors (``torch.uint32`` supports few ops).
-* the camera matrix stack of ``default_prepare`` (src/scene/shader.rs:183-230)
-  and the shadow pipeline's two prepares (shader.rs:234-279).
+* the camera matrix stack of ``default_prepare`` (src/scene/shader.rs:183-230),
+  the two-pass pipelines' two prepares (shader.rs:234-279) and the
+  occlusion probe's ``rotation_between``.
 
 Functions take tensors and compute on their device; matrices are (4, 4)
 row-major float32 tensors.
@@ -284,6 +285,46 @@ def shadow_pass_2_prepare(config, light_direction, look_from, look_at, up):
     u["i_vpmv"] = mat4_inverse(u["vpmv"])
     u["i_m"] = mat4_inverse(u["m"])
     return u
+
+
+# ---------------------------------------------------------------------------
+# Rotation3::rotation_between (occlusion sampling, shader.rs:921)
+# ---------------------------------------------------------------------------
+
+
+def rotation_between(a, b):
+    """(..., 3, 3) rotation taking direction a to direction b (nalgebra:
+    normalize both, axis = cross, angle = acos(dot)).  The identity when
+    they are aligned; for exactly opposite vectors nalgebra returns None and
+    the reference panics (shader.rs:921 unwrap), where this returns the
+    180-degree rotation about x, like the JAX module.  The dot is clamped
+    into [-1, 1] before acos (the JAX module's divergence: an unclamped
+    rounding past 1 would give NaN)."""
+    na_ = normalize3(a)
+    nb_ = normalize3(b)
+    c = cross3(na_, nb_)
+    norm_c = norm3(c)
+    d = dot3(na_, nb_)
+    eps = f32(1.19209290e-7)  # f32::EPSILON, nalgebra's default_epsilon
+
+    axis = c / torch.where(norm_c > eps, norm_c, 1.0)[..., None]
+    angle = torch.arccos(d.clamp(-1.0, 1.0))
+    ax, ay, az = axis[..., 0], axis[..., 1], axis[..., 2]
+    s = torch.sin(angle)
+    cth = torch.cos(angle)
+    one_m = 1.0 - cth
+    rot = torch.stack(
+        [
+            torch.stack([ax * ax * one_m + cth, ax * ay * one_m - az * s, ax * az * one_m + ay * s], dim=-1),
+            torch.stack([ax * ay * one_m + az * s, ay * ay * one_m + cth, ay * az * one_m - ax * s], dim=-1),
+            torch.stack([ax * az * one_m - ay * s, ay * az * one_m + ax * s, az * az * one_m + cth], dim=-1),
+        ],
+        dim=-2,
+    )
+    eye = torch.eye(3, dtype=torch.float32, device=a.device)
+    flip_x = torch.diag(torch.tensor([1.0, -1.0, -1.0], dtype=torch.float32, device=a.device))
+    aligned = torch.where((d >= 0.0)[..., None, None], eye, flip_x)
+    return torch.where((norm_c > eps)[..., None, None], rot, aligned)
 
 
 # ---------------------------------------------------------------------------

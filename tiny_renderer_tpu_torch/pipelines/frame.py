@@ -1,21 +1,22 @@
 """The frame path: uniforms -> vertex stage -> binning -> raster -> shade
 (``tiny_renderer_tpu.pipelines.frame``).
 
-Ported so far: the two-pass ``shadow`` pipeline on the kernel path, under
-every raster knob of the JAX package (each bit-identical to the default
-frame):
+All seven pipelines on the kernel path, under every raster knob of the JAX
+package (each bit-identical to the default frame):
 
-* default: the raster runs twice (the light pass depth-only, the camera
-  pass index-only, or depth + index when the caller wants z), then the
-  strip-compacted shade re-derives the varyings of the covered strips by an
-  attribute gather;
-* ``fuse_passes``: both rasters in one launch (K2), where
-  ``_use_fused_raster`` allows it;
+* default: the two-pass pipelines (``shadow``, ``occlusion``) raster the
+  light pass depth-only first; the others fill the shadow plane with
+  F32_MIN.  The camera pass is index-only (depth + index when the caller
+  wants z), then the strip-compacted shade re-derives the varyings of the
+  covered strips by an attribute gather;
+* ``fuse_passes``: both rasters of a two-pass pipeline in one launch (K2),
+  where ``_use_fused_raster`` allows it;
 * ``strip_mask``: the camera pass also emits the per-strip coverage plane;
 * ``strip_planes``: the camera pass also interpolates the varying planes
   (K1 phase 2) that the strip shade then reads instead of gathering;
 * ``compact_shade=False``: full-screen varying planes and a full-screen
-  shade;
+  shade (darboux's per-triangle constants by one gather,
+  ``_add_const_gather``);
 * ``idx_int16``, ``csr_indirect=False``, ``strip_pack_words=False``,
   ``tex_tile``, ``shadow_tile``, ``strip_len``: layouts.
 
@@ -51,13 +52,27 @@ class PipelineSpec:
 
 
 PIPELINES = {
+    "default": PipelineSpec("default", ("face_intensity",), shaders.shade_default),
+    "phong": PipelineSpec("phong", ("vertex_intensity",), shaders.shade_phong),
+    "normal_map": PipelineSpec("normal_map", (), shaders.shade_normal_map),
+    "specular": PipelineSpec("specular", (), shaders.shade_specular),
+    "darboux": PipelineSpec("darboux", ("darboux",), shaders.shade_darboux),
     "shadow": PipelineSpec(
         "shadow", ("vertex_intensity",), shaders.shade_shadow, two_pass=True
     ),
+    "occlusion": PipelineSpec("occlusion", (), shaders.shade_occlusion, two_pass=True),
 }
 
 # Vertex-attribute keys the shade gathers per fragment for compute_varyings.
-_GATHER_KEYS = {"shadow": ("uv", "intensity", "zv")}
+_GATHER_KEYS = {
+    "default": ("uv", "intensity"),
+    "phong": ("uv", "intensity"),
+    "normal_map": ("uv",),
+    "specular": ("uv",),
+    "darboux": ("uv", "t_norm", "row0n", "row1n", "du", "dv"),
+    "shadow": ("uv", "intensity", "zv"),
+    "occlusion": ("zv",),
+}
 
 
 def _check_config(config):
@@ -344,20 +359,28 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
 
     compact = config.compact_shade
     pspec = _planes_spec(pipeline, textures, config) if compact else None
-    u1 = ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
-    setup1 = triangle_setup(geom, u1, config, matrix_key="shadow_matrix", cull=False)
-    uniforms = ml.shadow_pass_2_prepare(config, light_direction, look_from, look_at, up)
-    uniforms["shadow_matrix"] = u1["shadow_matrix"]
+    if spec.two_pass:
+        u1 = ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
+        setup1 = triangle_setup(geom, u1, config, matrix_key="shadow_matrix", cull=False)
+        uniforms = ml.shadow_pass_2_prepare(config, light_direction, look_from, look_at, up)
+        uniforms["shadow_matrix"] = u1["shadow_matrix"]
+    else:
+        uniforms = ml.default_prepare(config, light_direction, look_from, look_at, up)
     setup = triangle_setup(geom, uniforms, config, needs=spec.needs)
 
     if _use_fused_raster(spec, config, setup, pspec, needs_z):
         shadow_z, idx, ovf1, ovf2 = _fused_raster(setup1, setup, config)
         z, varys, strips, kspec = None, None, None, ()
     else:
-        # Light pass: depth only.  Camera pass: index (and z when wanted),
-        # plus the strip plane and/or varying planes the shade reads.
-        shadow_z, _, _, _, ovf1 = _rasterize(setup1, config, emit_idx=False)
-        ovf1 = ovf1 | setup1["coord_overflow"]
+        # Light pass (two-pass pipelines): depth only.  Camera pass: index
+        # (and z when wanted), plus the strip plane and/or varying planes
+        # the shade reads.
+        if spec.two_pass:
+            shadow_z, _, _, _, ovf1 = _rasterize(setup1, config, emit_idx=False)
+            ovf1 = ovf1 | setup1["coord_overflow"]
+        else:
+            shadow_z = torch.full((H, W), ml.F32_MIN, dtype=torch.float32, device=dev)
+            ovf1 = torch.zeros((), dtype=torch.bool, device=dev)
         if compact:
             kspec = pspec or ()
         else:
@@ -379,9 +402,9 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
             strip_mask=strips, planes=varys, planes_spec=kspec,
         )
     else:
-        # Full-screen shade of the kernel's varying planes.  (The JAX
-        # module's per-triangle const gather serves darboux only.)
+        # Full-screen shade of the kernel's varying planes.
         frag = _fragments_from_planes(kspec, varys, H, W)
+        _add_const_gather(frag, kspec, VARYING_SPECS[pipeline], setup, idx)
         if spec.two_pass:
             frag["shadow_buffer"] = shadow_shade
         colors = spec.shade(frag, uniforms, textures, config)
@@ -389,6 +412,22 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
     # overflow: a binning coverage cap was hit, or triangles beyond the
     # int32 exactness envelope were dropped.
     return {"frame": frame, "z": z, "shadow": shadow_z, "overflow": ovf1 | ovf2}
+
+
+def _add_const_gather(frag, kspec, vspec, setup, idx):
+    """The per-triangle constants kernel_varying_spec dropped (darboux's
+    rows and uv deltas), fetched at each pixel's winner with one gather of
+    a packed (T, total) table instead of as broadcast planes."""
+    dropped = [e for e in vspec if e[2] == "const" and e not in kspec]
+    if not dropped:
+        return
+    key_of = shaders._CONST_SOURCES
+    table = torch.cat([setup[key_of[n]] for (n, _, _) in dropped], dim=1)
+    g = table[idx.clamp(min=0).long()]  # (H, W, total)
+    pos = 0
+    for name, comps, _ in dropped:
+        frag[name] = g[..., pos:pos + comps]
+        pos += comps
 
 
 def make_frame_fn(pipeline, config):

@@ -1,20 +1,25 @@
-"""Fragment-stage functions of the shadow pipeline (``tiny_renderer_tpu.pipelines.shaders``).
+"""The seven shader pipelines' fragment stages (``tiny_renderer_tpu.pipelines.shaders``).
 
 Shading is split as in the JAX module: varying interpolation — from
 gathered per-fragment triangle attributes (``VARYING_SPECS`` +
 ``compute_varyings``) or by the raster kernel (``kernel_varying_spec``) —
-then a pure ``shade_*`` function over any leading batch shape.  Only the
-shadow pipeline's shade is ported so far; the other six wait (ROADMAP
-Queue 1 item 8).
+then a pure ``shade_*`` function over any leading batch shape: flat
+(``default``), Gouraud (``phong``), world-space normal map
+(``normal_map``), normal map + Phong specular (``specular``), tangent-space
+normal map (``darboux``), shadow map (``shadow``) and ambient occlusion
+(``occlusion``).
 
 Textures are sampled through the word-packed plane of ``pack_textures``:
 each texel's RGB in one int32 word, optionally tile-swizzled
 (config.tex_tile), keyed ``_pk:<names>[@tile]`` exactly like the JAX
-package, so packed planes cross between the two unchanged.
+package, so packed planes cross between the two unchanged.  A map set whose
+dimensions differ cannot be packed; it is sampled map by map
+(``sample_maps``' fallback).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..ops import mathlib as ml
@@ -23,22 +28,46 @@ from ..ops import mathlib as ml
 # (barycentric interpolation of 3 per-vertex values), "const" (per-triangle
 # constant) or "zfrag" (bar . vertex z values, shader.rs:174).
 VARYING_SPECS = {
+    "default": (("uv", 2, "interp"), ("intensity", 1, "interp")),
+    "phong": (("uv", 2, "interp"), ("intensity", 1, "interp")),
+    "normal_map": (("uv", 2, "interp"),),
+    "specular": (("uv", 2, "interp"),),
+    "darboux": (
+        ("uv", 2, "interp"),
+        ("local_z", 3, "interp"),
+        ("row0", 3, "const"),
+        ("row1", 3, "const"),
+        ("du", 2, "const"),
+        ("dv", 2, "const"),
+    ),
     "shadow": (("uv", 2, "interp"), ("intensity", 1, "interp"), ("zfrag", 1, "zfrag")),
+    "occlusion": (("zfrag", 1, "zfrag"),),
 }
 
-# Setup-dict source of each "interp" varying, values[v][c] per vertex (used
-# by binning.pack_triangle_records).  The darboux pipeline's local_z arrives
-# with that pipeline.
-_INTERP_SOURCES = {
-    "uv": lambda s, c, v: s["uv"][:, v, c],
-    "intensity": lambda s, c, v: s["intensity"][:, v],
-}
+# Setup key of each "interp" varying, (T, 3[, comps]) per vertex (the record
+# lanes of pack_triangle_records, and the fragment key compute_varyings reads).
+_INTERP_SOURCES = {"uv": "uv", "intensity": "intensity", "local_z": "t_norm"}
 # Setup key of each "const" varying, (T, comps) per triangle (the record
 # lanes of pack_triangle_records, and the fragment key compute_varyings reads).
 _CONST_SOURCES = {"row0": "row0n", "row1": "row1n", "du": "du", "dv": "dv"}
 
 # Texture maps each pipeline samples (word-packed together).
-PIPELINE_MAPS = {"shadow": ("texture",)}
+PIPELINE_MAPS = {
+    "default": ("texture",),
+    "phong": ("texture",),
+    "normal_map": ("texture", "normal_map"),
+    "specular": ("texture", "normal_map", "specular_map"),
+    "darboux": ("texture", "normal_map_tangent"),
+    "shadow": ("texture",),
+    "occlusion": (),
+}
+
+BLACK = (0, 0, 0)
+WHITE = (255, 255, 255)
+
+
+def _color(rgb, device):
+    return torch.tensor(rgb, dtype=torch.uint8, device=device)
 
 
 def num_planes(spec) -> int:
@@ -51,9 +80,10 @@ def kernel_varying_spec(pipeline, textures, tile: int = 0):
     When the pipeline's maps share dimensions, the interpolated uv (whose
     only consumer is texture sampling) becomes one texel-index plane
     ("texidx:W:H[:tile]", indices into the packed plane's layout for
-    config.tex_tile) instead of two uv planes.  Falls back to the reference
-    spec when texture dims are mixed.  (The JAX function also drops
-    darboux's per-triangle constants; they arrive with that pipeline.)
+    config.tex_tile) instead of two uv planes, and darboux's per-triangle
+    constants are dropped (the full-screen shade fetches them with one
+    small gather, frame._add_const_gather).  Falls back to the reference
+    spec when texture dims are mixed.
     """
     spec = VARYING_SPECS[pipeline]
     names = PIPELINE_MAPS.get(pipeline, ())
@@ -71,6 +101,8 @@ def kernel_varying_spec(pipeline, textures, tile: int = 0):
         if name == "uv":
             m = f"texidx:{w}:{h}:{tile}" if tile else f"texidx:{w}:{h}"
             out.append(("texidx", 1, m))
+        elif mode == "const" and pipeline == "darboux":
+            continue
         else:
             out.append((name, comps, mode))
     return tuple(out)
@@ -87,7 +119,7 @@ def compute_varyings(frag, spec):
             zv = frag["zv"]
             out[name] = (zv[..., 0] * b0 + zv[..., 1] * b1) + zv[..., 2] * b2
         elif mode == "interp":
-            a = frag[name]  # (..., 3v[, comps])
+            a = frag[_INTERP_SOURCES.get(name, name)]  # (..., 3v[, comps])
             if a.ndim == bar.ndim:  # scalar varying: (..., 3)
                 out[name] = (a[..., 0] * b0 + a[..., 1] * b1) + a[..., 2] * b2
             else:
@@ -119,6 +151,49 @@ def _decode_normal(rgb):
     """byte/255 - 0.5 per channel, then normalize (util.rs:51-56)."""
     v = rgb.to(torch.float32) / 255.0 - 0.5
     return ml.normalize3(v)
+
+
+def sample_color(textures, uv):
+    """get_color_at_uv (util.rs:34-41): nearest-neighbour RGB fetch."""
+    tex = textures["texture"]
+    cx, cy = _tex_coords(uv, tex.shape[1], tex.shape[0])
+    return tex[cy, cx]
+
+
+def sample_normal(textures, uv):
+    """get_normal_at_uv (util.rs:44-57)."""
+    tex = textures["normal_map"]
+    cx, cy = _tex_coords(uv, tex.shape[1], tex.shape[0])
+    return _decode_normal(tex[cy, cx])
+
+
+def sample_normal_tangent(textures, uv):
+    """get_normal_tangent_at_uv (util.rs:60-73).  The reference's quirk is
+    kept: texel coordinates come from the *normal_map* dims, the fetch reads
+    *normal_map_tangent* (clamped into its range, the JAX package's
+    divergence from the reference's panic)."""
+    nm = textures["normal_map"]
+    tex = textures["normal_map_tangent"]
+    cx, cy = _tex_coords(uv, nm.shape[1], nm.shape[0])
+    cx = cx.clamp(max=tex.shape[1] - 1)
+    cy = cy.clamp(max=tex.shape[0] - 1)
+    return _decode_normal(tex[cy, cx])
+
+
+def sample_specular(textures, uv):
+    """get_specular_value_at_uv (util.rs:76-83): the RAW byte 0..255, used
+    directly as the specular exponent (shader.rs:521-525)."""
+    tex = textures["specular_map"]
+    cx, cy = _tex_coords(uv, tex.shape[1], tex.shape[0])
+    return tex[cy, cx, 0].to(torch.float32)
+
+
+_SAMPLERS = {
+    "texture": sample_color,
+    "normal_map": sample_normal,
+    "normal_map_tangent": sample_normal_tangent,
+    "specular_map": sample_specular,
+}
 
 
 def _pk_key(names, tile: int = 0) -> str:
@@ -196,19 +271,30 @@ def _unpack_rgb(word):
 
 
 def sample_maps(textures, uv, names):
-    """Fetch the maps `names` at uv with ONE gather of the packed plane
-    (pack_textures must have packed it).  Returns {name: decoded sample}.
-    The JAX module's unpacked fallbacks serve mixed-dimension map sets,
-    which no ported pipeline has."""
+    """Fetch the maps `names` at uv.  Returns {name: decoded sample}, equal
+    to the per-map samplers.  With the packed plane of pack_textures: ONE
+    gather of its words.  Without it: one gather of the maps concatenated
+    along channels when they share dims, else the per-map samplers (a set
+    whose dims differ, where the tangent map's quirk matters)."""
     pk, tile = _find_pk(textures, names)
-    if pk is None:
-        raise KeyError(f"no packed texture plane {_pk_key(names)!r}; call pack_textures")
-    h, w = pk.shape[:2]
+    if pk is not None:
+        h, w = pk.shape[:2]
+        cx, cy = _tex_coords(uv, w, h)
+        flat = pk.reshape(-1, pk.shape[-1])
+        idx = _swizzle_index(cx, cy, w, tile) if tile else cy * w + cx
+        g = flat[idx]  # (..., n) i32 words
+        return {n: _decode_map(n, _unpack_rgb(g[..., i])) for i, n in enumerate(names)}
+
+    texs = [textures[n] for n in names]
+    dims = {tuple(t.shape[:2]) for t in texs}
+    if "normal_map_tangent" in names:
+        dims.add(tuple(textures["normal_map"].shape[:2]))
+    if len(names) == 1 or len(dims) != 1:
+        return {n: _SAMPLERS[n](textures, uv) for n in names}
+    h, w = texs[0].shape[:2]
     cx, cy = _tex_coords(uv, w, h)
-    flat = pk.reshape(-1, pk.shape[-1])
-    idx = _swizzle_index(cx, cy, w, tile) if tile else cy * w + cx
-    g = flat[idx]  # (..., n) i32 words
-    return {n: _decode_map(n, _unpack_rgb(g[..., i])) for i, n in enumerate(names)}
+    g = torch.cat(texs, dim=-1)[cy, cx]  # (..., 3 * len(names)) u8
+    return {n: _decode_map(n, g[..., 3 * i:3 * i + 3]) for i, n in enumerate(names)}
 
 
 def _decode_map(name, raw):
@@ -293,6 +379,76 @@ def swizzle_plane(plane, tile):
     )
 
 
+# ---------------------------------------------------------------------------
+# Pipelines.  Each shade consumes the interpolated varyings of its
+# VARYING_SPECS entry, plus "x"/"y" pixel coords and, for the two-pass
+# pipelines, "shadow_buffer".
+# ---------------------------------------------------------------------------
+
+
+def shade_default(frag, uniforms, textures, config):
+    """Flat shading (shader.rs:318-333): texture * face diffuse."""
+    color = sample_frag(textures, frag, ("texture",))["texture"]
+    return ml.color_blend(color, _color(BLACK, color.device), frag["intensity"])
+
+
+def shade_phong(frag, uniforms, textures, config):
+    """Gouraud-interpolated intensity (shader.rs:386-401)."""
+    color = sample_frag(textures, frag, ("texture",))["texture"]
+    return ml.color_blend(color, _color(BLACK, color.device), frag["intensity"])
+
+
+def shade_normal_map(frag, uniforms, textures, config):
+    """World-space normal map lookup (shader.rs:439-457)."""
+    s = sample_frag(textures, frag, ("texture", "normal_map"))
+    color, n = s["texture"], s["normal_map"]
+    t_n = ml.normalize3(ml.mat4_transform_vector(uniforms["it_m"], n))
+    diff = ml.dot3(uniforms["t_light_direction"], t_n)
+    return ml.color_blend(color, _color(BLACK, color.device), diff)
+
+
+def shade_specular(frag, uniforms, textures, config):
+    """Normal-map diffuse + Phong specular (shader.rs:498-534).  torch.pow
+    may differ from XLA's pow in the last ulp."""
+    s = sample_frag(textures, frag, ("texture", "normal_map", "specular_map"))
+    color = s["texture"].to(torch.float32)
+    t_n = ml.normalize3(ml.mat4_transform_vector(uniforms["it_m"], s["normal_map"]))
+    light = uniforms["t_light_direction"]
+    d = ml.dot3(light, t_n)
+    reflected = ml.normalize3(2.0 * (t_n * d[..., None]) - light)
+    # Only the reflection's z matters: the camera looks down -z in its own
+    # frame (shader.rs:520-525).
+    spec = ml.f32(config.specular_scale) * torch.pow(
+        reflected[..., 2].clamp(min=0.0), s["specular_map"]
+    )
+    coef = (d + spec)[..., None]
+    return ml.rust_f32_to_u8((coef * color).clamp(max=255.0))
+
+
+def shade_darboux(frag, uniforms, textures, config):
+    """Tangent-space (Darboux) normal mapping (shader.rs:597-654)."""
+    s = sample_frag(textures, frag, ("texture", "normal_map_tangent"))
+    color, tn_sample = s["texture"], s["normal_map_tangent"]
+
+    local_z = frag["local_z"]
+    basis = torch.stack([frag["row0"], frag["row1"], ml.normalize3(local_z)], dim=-2)
+    i_basis = ml.mat3_inverse(basis)
+    du, dv = frag["du"], frag["dv"]
+    zeros = torch.zeros_like(du[..., 0])
+    local_x = mat3_vec(i_basis, torch.stack([du[..., 0], du[..., 1], zeros], dim=-1))
+    local_y = mat3_vec(i_basis, torch.stack([dv[..., 0], dv[..., 1], zeros], dim=-1))
+
+    # The transform's columns (x, y, z), applied to the sampled normal.
+    col_x = ml.normalize3(local_x)
+    col_y = ml.normalize3(local_y)
+    col_z = ml.normalize3(local_z)
+    t_fragment_normal = ml.normalize3(
+        col_x * tn_sample[..., 0:1] + col_y * tn_sample[..., 1:2] + col_z * tn_sample[..., 2:3]
+    )
+    diff = ml.dot3(uniforms["t_light_direction"], t_fragment_normal)
+    return ml.color_blend(color, _color(BLACK, color.device), diff)
+
+
 def shade_shadow(frag, uniforms, textures, config):
     """Shadow pass 2 (shader.rs:749-788): phong + shadow-map depth compare."""
     x = frag["x"].to(torch.float32)
@@ -309,5 +465,73 @@ def shade_shadow(frag, uniforms, textures, config):
         1.0,
     )
     color = sample_frag(textures, frag, ("texture",))["texture"]
-    black = torch.zeros(3, dtype=torch.uint8, device=color.device)
-    return ml.color_blend(color, black, frag["intensity"] * shadow_coef)
+    return ml.color_blend(color, _color(BLACK, color.device), frag["intensity"] * shadow_coef)
+
+
+def occlusion_sample_coords(xf, yf, zfrag, uniforms, config):
+    """Float shadow-space coords of the occlusion probe (shader.rs:882-933).
+
+    Returns (sxs, sys), each (n+1, ...) f32: rows 0..n-1 are the n circular
+    samples in the plane perpendicular to the light, row n the fragment's
+    own shadow coord.  The sample directions are numpy float32 sin/cos of
+    float32 angles, the bits the JAX module uses."""
+    p = torch.stack([xf, yf, zfrag], dim=-1)
+    light = ml.mat4_transform_vector(uniforms["i_m"], uniforms["t_light_direction"])
+    world = ml.mat4_transform_point(uniforms["i_vpmv"], p)
+    sm = ml.mat4_mul(uniforms["shadow_matrix"], uniforms["i_vpmv"])
+    fsc = ml.mat4_transform_point(sm, p)
+    rot = ml.rotation_between(
+        torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=light.device), light
+    )
+
+    n = config.occlusion_samples
+    angle_coef = np.float32(2.0 * np.pi) / np.float32(n)
+    ang = [np.float32(angle_coef * np.float32(i)) for i in range(n)]
+    dirs = np.array([[np.sin(a), 0.0, np.cos(a)] for a in ang], dtype=np.float32)
+    # All n samples at once: the same elementwise arithmetic per sample.
+    step = mat3_vec(rot, torch.from_numpy(dirs).to(light.device)) * ml.f32(config.occlusion_step)
+    sample = world + step.reshape(n, *([1] * (world.ndim - 1)), 3)  # (n, ..., 3)
+    ssc = ml.mat4_transform_point(uniforms["shadow_matrix"], sample)
+    return (torch.cat([ssc[..., 0], fsc[None, ..., 0]]),
+            torch.cat([ssc[..., 1], fsc[None, ..., 1]]))
+
+
+def occlusion_update(svals, fval, config):
+    """The occlusion accumulation loop (shader.rs:934-941): svals (n, ...)
+    sampled shadow values, fval the fragment's own shadow value."""
+    n = config.occlusion_samples
+    inv_n = ml.f32(np.float32(1.0) / np.float32(n))
+    threshold = ml.f32(config.occlusion_threshold)
+    depth_scale = ml.f32(config.occlusion_depth_scale)
+    occ = torch.ones_like(fval)
+    for i in range(n):
+        sval = svals[i]
+        occluded = (sval - threshold) > fval
+        strength = ((sval - fval) / depth_scale).clamp(max=1.0)
+        occ = torch.where(occluded, occ - inv_n * strength, occ)
+    return occ
+
+
+def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
+    """The occlusion core (shader.rs:882-941) for any batch of fragments:
+    all n+1 shadow-buffer indices computed elementwise, then ONE gather.
+    config.occlusion_dedup (the JAX module's duplicate-collapsing gather,
+    exact by construction) changes no value and is not ported: the plain
+    gather serves either setting."""
+    n = config.occlusion_samples
+    sxs, sys = occlusion_sample_coords(xf, yf, zfrag, uniforms, config)
+    flat = shadow_flat_indices(
+        sxs, sys, shadow_buffer.shape, config.width,
+        tile=plane_tile_effective(config, shadow_buffer.shape),
+    )
+    vals = shadow_buffer.reshape(-1)[flat]  # (n+1, ...)
+    return occlusion_update(vals[:n], vals[n], config)
+
+
+def shade_occlusion(frag, uniforms, textures, config):
+    """Occlusion pass 2 (shader.rs:872-947): white * the coefficient."""
+    occ = occlusion_coefficient(
+        frag["x"].to(torch.float32), frag["y"].to(torch.float32), frag["zfrag"],
+        frag["shadow_buffer"], uniforms, config,
+    )
+    return ml.color_blend(_color(WHITE, occ.device), _color(BLACK, occ.device), occ)
