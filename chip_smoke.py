@@ -27,7 +27,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              kernel specs (texel index over 2 or 3 packed maps, darboux's
              3-component local_z) at tex_tile 0 and 16, darboux's 15-plane
              reference spec with its four consts (maps of mixed dims), and
-             occlusion's zfrag-only spec.
+             occlusion's zfrag-only spec, and the two-pass custom
+             pipeline fog's spec (texel index + zfrag) at tex_tile 0 and 16.
              On each scene's two passes, the rect masks the kernel computes
              (its probe build) equal raster_cuda.cull_masks, the torch
              model of the cull that the work counts below come from.
@@ -68,9 +69,37 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              4-plane and 15-plane specs (paced, twin and device times)
              beside its bound;
              beside the card's name and power limit.
+8. entry   — the entry points above the frame path, each at 800x800 on the
+             flagship scene.  Registry: custom pipelines registered with
+             register_pipeline — toon (one pass, uv + intensity), fog
+             (two_pass, uv + zfrag, reads the shadow buffer) and glow (the
+             user vertex attribute attr:glow) — each through Scene.render
+             and an 8-frame burst bit-identical to the twin raster, with 1
+             K1 launch per frame (2 for fog), within 0.5% of the CPU frame;
+             fog under fuse_passes (1 K2 launch per frame) and under
+             strip_mask + strip_planes equal to its default burst; a zeroed
+             attr:glow changes the frame.  CLI in process (app.main): a
+             shadow orbit with --timing, --save, --dump-z, --dump-shadow;
+             toon with --save-seq; shadow with --knob fuse_passes=true;
+             every PNG equal to a Scene or render_sequence frame
+             at the same angles.  Interactive: run_interactive with a
+             scripted viewer and a fake clock ('d' held 5 frames, 'q' 3,
+             then Escape), pipelined and serial, the final frame equal to a
+             Scene.render at the integrated angles.  Serving: the HTTP frame
+             server on a loopback port, /render bytes of shadow and toon
+             equal to png_bytes of a direct render, 400 on a bad pipeline or
+             angle, /healthz ok.  Prints the stage breakdown of shadow and
+             default (CUDA-event and host ms per stage), ms per served
+             request and interactive ms per frame.
+9. profile — the CLI with --profile (torch.profiler): the trace's GPU
+             kernels and the device's idle share over 4 shadow frames, and
+             the shadow frame by the stage profile before and after the
+             profiler ran (last, so that no other measurement follows the
+             profiler in the process).
 
 Each phase prints its seconds.  Launch counts are set to 0 just before each
-path is driven and read just after.  Prints a JSON line of kernel results
+path is driven and read just after (the kernels line's launches_by_pipeline
+includes the custom pipelines toon, fog and glow).  Prints a JSON line of kernel results
 (time paced by the host as "ms", device time as "device_ms", launches in
 all the paths driven and by pipeline, the pipelines whose paths launched
 it, error, and the bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
@@ -87,7 +116,10 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
+import threading
 import time
+import types
 from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
@@ -99,6 +131,13 @@ N_KNOB_FRAMES = 4
 N_PIPE_FRAMES = 8
 PIPELINE_ORDER = ("default", "phong", "normal_map", "specular", "darboux", "shadow", "occlusion")
 NEW_PIPELINES = tuple(p for p in PIPELINE_ORDER if p != "shadow")
+# Custom pipelines of the entry phase and their K1 launches per frame.
+CUSTOM_LAUNCHES = {"toon": {"raster": 1}, "fog": {"raster": 2}, "glow": {"raster": 1}}
+FOG_SPEC = (("uv", 2, "interp"), ("zfrag", 1, "zfrag"))
+# Interactive script: after the frame shown at each index, these key events.
+# 'd' is held while frames 1-5 integrate, 'q' while frames 6-8 do.
+KEY_SCRIPT = {0: [("press", "d")], 5: [("release", "d"), ("press", "q")],
+              8: [("release", "q"), ("press", "escape")]}
 DEVICE = "cuda"
 VIEW = ([0.3, 0.0, 0.95], [0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
 MODES = {"z": dict(emit_z=True, emit_idx=False), "idx": dict(emit_z=False, emit_idx=True),
@@ -167,6 +206,69 @@ def phase(name, msg):
 def check(cond, msg):
     if not cond:
         raise AssertionError(msg)
+
+
+def shade_fog(frag, uniforms, textures, config):
+    """The two-pass custom shade: texture dimmed where the shadow compare
+    fails and by depth (zfrag), with the shadow buffer fetched as the
+    built-in shadow shade fetches it."""
+    from tiny_renderer_tpu_torch.ops import mathlib as ml
+    from tiny_renderer_tpu_torch.pipelines import shaders
+
+    sm = ml.mat4_mul(uniforms["shadow_matrix"], uniforms["i_vpmv"])
+    p = torch.stack([frag["x"].to(torch.float32), frag["y"].to(torch.float32), frag["zfrag"]], dim=-1)
+    sc = ml.mat4_transform_point(sm, p)
+    sval = shaders._shadow_fetch(frag["shadow_buffer"], sc[..., 0], sc[..., 1], config.width,
+                                 tile=shaders.plane_tile_effective(config, frag["shadow_buffer"].shape))
+    lit = torch.where(sc[..., 2] + ml.f32(config.shadow_bias) < sval, ml.f32(0.3), 1.0)
+    t = lit * (frag["zfrag"] / ml.f32(config.depth)).clamp(0.0, 1.0)
+    color = shaders.sample_frag(textures, frag, ("texture",))["texture"]
+    return ml.color_blend(color, torch.zeros(3, dtype=torch.uint8, device=color.device), t)
+
+
+class ScriptedViewer:
+    """A window for run_interactive: records the frames shown and fires
+    KEY_SCRIPT's key events after each."""
+
+    def __init__(self, script):
+        self.script, self.shown, self.alive = script, 0, True
+        self.last = None
+
+    def connect(self, on_press, on_release):
+        self._on = {"press": on_press, "release": on_release}
+
+    def show(self, frame):
+        self.last = np.array(frame)
+        for kind, key in self.script.get(self.shown, []):
+            self._on[kind](key)
+        self.shown += 1
+
+    def close(self):
+        self.alive = False
+
+
+def fake_clock(dt):
+    """A clock that advances dt per call: every frame_time of the
+    interactive loop (two calls per frame) is then exactly dt."""
+    t = [0.0]
+
+    def clock():
+        t[0] += dt
+        return t[0]
+
+    return clock
+
+
+def http_get(url):
+    """(status, body) of a GET; error statuses return their body."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.status, r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
 
 
 def soup(n, seed):
@@ -252,13 +354,271 @@ def bound(passes, out_bytes, planes=(), covered=0):
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
 
 
+def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scene, default_scene):
+    """Phase 8: the entry points above the frame path (register_pipeline,
+    the CLI, the interactive loop, the frame server), every scene starting
+    from `config`; launches are reported through record(pipeline, counts)
+    and twin is the pair of patches that swap the kernels for their twins."""
+    from tiny_renderer_tpu_torch import Scene, app, register_pipeline, unregister_pipeline
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.examples import custom_pipeline as example
+    from tiny_renderer_tpu_torch.examples.serve_http import serve
+    from tiny_renderer_tpu_torch.ops import raster_cuda
+    from tiny_renderer_tpu_torch.pipelines.frame import make_burst_fn, render_frame
+    from tiny_renderer_tpu_torch.pipelines.profile import print_stage_breakdown
+    from tiny_renderer_tpu_torch.utils.png import png_bytes
+
+    cpu_view = [to_tensor(np.float32(v), "cpu") for v in VIEW]
+    # (a) Registry: the custom pipelines through Scene and a burst.
+    glow = example.glow_attribute(model)
+    custom_runs = {}  # name -> (burst fn, scene, burst frames, Scene.render frame)
+    for name, per_frame in CUSTOM_LAUNCHES.items():
+        csc = Scene(model, name, config, device=dev,
+                    vertex_attrs={"glow": glow} if name == "glow" else None)
+        csc.set_light_direction(VIEW[0])
+        csc.set_camera(*VIEW[1:])
+        cburst = make_burst_fn(name, csc.config, keep_frames=True)
+        raster_cuda.reset_launches()
+        r1 = csc.render()
+        torch.cuda.synchronize()
+        got_render = dict(raster_cuda.LAUNCHES)
+        raster_cuda.reset_launches()
+        cout = cburst(csc._geom, csc._textures, pcams, pligs)
+        torch.cuda.synchronize()
+        got_burst = dict(raster_cuda.LAUNCHES)
+        want = {k: per_frame.get(k, 0) for k in got_render}
+        check(got_render == want, f"{name}: Scene.render launches {got_render}, expected {want}")
+        want = {k: N_PIPE_FRAMES * v for k, v in want.items()}
+        check(got_burst == want, f"{name}: burst launches {got_burst}, expected {want}")
+        record(name, got_render)
+        record(name, got_burst)
+        cframes = cout["frames"]
+        clit = (cframes > 0).any(-1).flatten(1).float().mean(1)
+        check(bool((clit > 0).all()), f"{name}: a burst frame is all black: lit share {clit.tolist()}")
+        check(not bool(cout["overflow"].any()) and not csc.overflowed, f"{name}: a frame overflowed")
+        with twin[0], twin[1]:
+            tout = cburst(csc._geom, csc._textures, pcams, pligs)
+            trender = csc.render()
+        check(raster_cuda.LAUNCHES == got_burst, f"{name}: the twin burst launched a kernel")
+        check(torch.equal(tout["frames"], cframes), f"{name}: burst frames differ from the twin-raster burst")
+        for k in ("frame", "z", "shadow"):
+            check(torch.equal(trender[k], r1[k]), f"{name}: Scene.render {k} differs from the twin raster")
+        ccpu = render_frame({k: v.cpu() for k, v in csc._geom.items()},
+                            {k: v.cpu() for k, v in csc._textures.items()}, *cpu_view,
+                            pipeline=name, config=csc.config)
+        cdiff = float((ccpu["frame"] != r1["frame"].cpu()).any(-1).float().mean())
+        check(cdiff < 0.005, f"{name}: GPU frame differs from the CPU frame on {cdiff:.4%} of pixels")
+        custom_runs[name] = (cburst, csc, cframes, r1["frame"])
+        phase("entry", f"{name}: Scene.render {got_render['raster']} + burst {got_burst['raster']} K1 "
+              f"launches ({per_frame['raster']} per frame), lit share {min(clit.tolist()):.4f}-"
+              f"{max(clit.tolist()):.4f}, render and {N_PIPE_FRAMES}-frame burst bit-identical to the twin "
+              f"raster; vs the CPU frame {cdiff:.6%} of pixels differ")
+    for label, knobs, per_frame in (("fuse_passes", dict(fuse_passes=True), {"fused": 1}),
+                                    ("strip_mask + strip_planes", dict(strip_mask=True, strip_planes=True),
+                                     {"raster": 2, "strips": 1, "planes": 1})):
+        fsc = Scene(model, "fog", dataclasses.replace(config, **knobs), device=dev)
+        raster_cuda.reset_launches()
+        fout = make_burst_fn("fog", fsc.config, keep_frames=True)(
+            fsc._geom, fsc._textures, pcams[:N_KNOB_FRAMES], pligs[:N_KNOB_FRAMES])
+        torch.cuda.synchronize()
+        got = dict(raster_cuda.LAUNCHES)
+        record("fog", got)
+        want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+        check(got == want, f"fog {label}: launches {got}, expected {want}")
+        check(torch.equal(fout["frames"], custom_runs["fog"][2][:N_KNOB_FRAMES]),
+              f"fog {label}: burst frames differ from fog's default burst")
+        phase("entry", f"fog {label}: {N_KNOB_FRAMES} frames bit-identical to fog's default burst, "
+              f"launches {got}")
+    cold = Scene(model, "glow", config, device=dev, vertex_attrs={"glow": np.zeros_like(glow)})
+    cold.set_light_direction(VIEW[0])
+    cold.set_camera(*VIEW[1:])
+    check(not torch.equal(cold.render()["frame"], custom_runs["glow"][3]),
+          "glow: a zeroed attr:glow renders the same frame")
+    phase("entry", "glow: a zeroed attr:glow changes the frame")
+
+    # (b) The CLI in process.  Each app.main builds its Scene through
+    # Recording, so the state the CLI rendered can be rendered again.
+    class Recording(Scene):
+        made = []
+
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            Recording.made.append(self)
+
+    def again(sc, pipeline=None, config=None):
+        """A fresh Scene rendered at the state sc last rendered."""
+        ref = Scene(sc.model, pipeline or sc.pipeline_name, config or sc.config, device=dev)
+        ref.set_camera(sc._look_from, sc._look_at, sc._up)
+        ref.set_light_direction(sc._light_direction)
+        ref.render()
+        return ref
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    cli = ["--size", str(config.width), str(config.height), "--backend", dev.type]
+    with tempfile.TemporaryDirectory() as tmp, mock.patch.object(app, "Scene", Recording):
+        out = {k: f"{tmp}/{k}.png" for k in ("save", "z", "shadow", "fuse")}
+        raster_cuda.reset_launches()
+        rc = app.main([*cli, "-s", "shadow", "--frames", "10", "--orbit", "--timing", "--no-fps",
+                       "--save", out["save"], "--dump-z", out["z"], "--dump-shadow", out["shadow"]])
+        torch.cuda.synchronize()
+        got = dict(raster_cuda.LAUNCHES)
+        record("shadow", got)
+        check(rc == 0, f"app.main shadow --orbit --timing returned {rc}")
+        check(got["raster"] >= 20, f"app.main shadow: launches {got}")
+        sc = Recording.made[-1]
+        ref = again(sc)
+        check(read(out["save"]) == png_bytes(ref.get_frame_buffer()), "--save differs from Scene")
+        check(read(out["z"]) == png_bytes(ref.get_z_buffer()), "--dump-z differs from Scene")
+        check(read(out["shadow"]) == png_bytes(ref.get_shadow_buffer()), "--dump-shadow differs from Scene")
+        phase("entry", f"app.main -s shadow --frames 10 --orbit --timing --save --dump-z --dump-shadow: "
+              f"rc 0, launches {got}, the three PNGs equal to a Scene at the final angles")
+
+        raster_cuda.reset_launches()
+        rc = app.main([*cli, "-s", "toon", "--frames", "8", "--no-fps", "--save-seq", f"{tmp}/seq"])
+        torch.cuda.synchronize()
+        got = dict(raster_cuda.LAUNCHES)
+        record("toon", got)
+        check(rc == 0 and got["raster"] == 8, f"app.main toon --save-seq: rc {rc}, launches {got}")
+        sc = Recording.made[-1]
+        step = np.arange(8) / 60.0
+        seq = Scene(sc.model, "toon", sc.config, device=dev).render_sequence(
+            (sc.config.camera_speed * step).astype(np.float32), (-sc.config.light_speed * step).astype(np.float32))
+        for i in range(8):
+            check(read(f"{tmp}/seq/frame_{i:04d}.png") == png_bytes(seq[i]),
+                  f"--save-seq frame {i} differs from render_sequence")
+        phase("entry", f"app.main -s toon --frames 8 --save-seq: rc 0, launches {got}, 8 PNGs equal to "
+              "render_sequence")
+
+        raster_cuda.reset_launches()
+        rc = app.main([*cli, "-s", "shadow", "--frames", "4", "--knob", "fuse_passes=true", "--no-fps",
+                       "--save", out["fuse"]])
+        torch.cuda.synchronize()
+        got = dict(raster_cuda.LAUNCHES)
+        record("shadow", got)
+        sc = Recording.made[-1]
+        check(rc == 0 and sc.config.fuse_passes, f"app.main --knob fuse_passes=true: rc {rc}")
+        # Scene.render asks for the camera z, which K2 does not emit: K1.
+        check(got["raster"] == 8 and got["fused"] == 0, f"app.main --knob fuse_passes=true: launches {got}")
+        ref = again(sc, config=config)
+        check(read(out["fuse"]) == png_bytes(ref.get_frame_buffer()),
+              "--knob fuse_passes=true differs from the default config's Scene")
+        phase("entry", f"app.main -s shadow --frames 4 --knob fuse_passes=true: rc 0, launches {got} "
+              "(Scene.render wants z), PNG equal to the default config's Scene")
+    Recording.made.clear()
+
+    # (c) Interactive, scripted keys and a fake clock.
+    isc = Scene(model, "shadow", config, device=dev)
+    state = app.InputState(0.0, 0.0, isc.config.camera_speed, isc.config.light_speed)
+    dt, prev_dt = 1.0 / 60.0, 0.0
+    for i in range(max(KEY_SCRIPT) + 1):  # the loop's integration, replayed
+        state.integrate(prev_dt)
+        for kind, key in KEY_SCRIPT.get(i, []):
+            (state.on_press if kind == "press" else state.on_release)(key)
+        prev_dt = dt
+    want = again(types.SimpleNamespace(model=model, pipeline_name="shadow", config=isc.config, **dict(zip(
+        ("_look_from", "_look_at", "_up", "_light_direction"), app._angles_to_vectors(state.camera, state.light)))))
+    inter_ms = {}
+    for label, serial in (("pipelined", False), ("serial", True)):
+        viewer = ScriptedViewer(KEY_SCRIPT)
+        args = types.SimpleNamespace(camera_angle=0.0, light_angle=0.0, no_fps=True, serial_present=serial)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        final = app.run_interactive(isc, args, viewer=viewer, clock=fake_clock(dt))
+        inter_ms[label] = (time.perf_counter() - t0) * 1e3 / viewer.shown
+        check(viewer.shown == max(KEY_SCRIPT) + 1 and not viewer.alive, f"interactive {label}: "
+              f"{viewer.shown} frames shown")
+        check(np.array_equal(final, want.get_frame_buffer()),
+              f"interactive {label}: the final frame differs from Scene.render at the integrated angles")
+    phase("entry", f"run_interactive ('d' 5 frames, 'q' 3, Escape): final frame equal to Scene.render at "
+          f"camera {state.camera:.4f}, light {state.light:.4f}; ms per frame (host clock, "
+          f"{max(KEY_SCRIPT) + 1} frames incl. presentation): pipelined {inter_ms['pipelined']:.3f}, "
+          f"serial {inter_ms['serial']:.3f}  [{smi}]")
+
+    # (d) Serving over a loopback port.
+    server, service = serve(None, port=0, size=config.width, device=dev)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        for name in ("shadow", "toon"):
+            status, body = http_get(f"{base}/render?pipeline={name}&camera=0.9&light=-0.6")
+            direct = Scene(service.model, name, service.config, device=dev)
+            direct.set_camera(*app._angles_to_vectors(0.9, -0.6)[:3])
+            direct.set_light_direction(app._angles_to_vectors(0.9, -0.6)[3])
+            check(status == 200 and body == png_bytes(direct.get_frame_buffer()),
+                  f"/render {name}: status {status}, bytes differ from a direct render")
+        for query in ("pipeline=nope", "pipeline=shadow&camera=abc"):
+            status, _ = http_get(f"{base}/render?{query}")
+            check(status == 400, f"/render?{query}: status {status}, expected 400")
+        n_req = 8
+        t0 = time.perf_counter()
+        for i in range(n_req):
+            status, _ = http_get(f"{base}/render?pipeline=shadow&camera={0.1 * i}")
+            check(status == 200, f"/render shadow: status {status}")
+        served_ms = (time.perf_counter() - t0) * 1e3 / n_req
+        status, body = http_get(f"{base}/healthz")
+        health = json.loads(body)
+        check(status == 200 and health["ok"] and health["renders"] == 2 + n_req,
+              f"/healthz: {status} {health}")
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=30)
+    check(not thread.is_alive(), "the server thread did not stop")
+    phase("entry", f"serve(None, port=0, size={config.width}): /render shadow and toon bytes equal to png_bytes of a "
+          f"direct render, 400 on a bad pipeline and angle, /healthz {health}; {served_ms:.3f} ms per "
+          f"served {config.width}x{config.width} shadow request (host clock, {n_req} sequential requests, PNG encode "
+          f"included)  [{smi}]")
+
+    for sc in (shadow_scene, default_scene):
+        print_stage_breakdown(sc, iters=24, out=lambda line: phase("entry", f"{line}  [{smi}]"))
+    for name in CUSTOM_LAUNCHES:
+        unregister_pipeline(name)
+
+
+def profile_phase(dev, config, smi, shadow_scene):
+    """Phase 9: the CLI's --profile trace (torch.profiler), the device's busy
+    and idle share in it, and the shadow frame by the stage profile before
+    and after the profiler ran in this process.  Last, so that no other
+    measurement follows the profiler in the process."""
+    from tiny_renderer_tpu_torch import app
+    from tiny_renderer_tpu_torch.pipelines.profile import stage_breakdown
+    from tiny_renderer_tpu_torch.utils.timing import TRACE_FILE
+
+    before = stage_breakdown(shadow_scene, iters=24)[1]["full"]
+    with tempfile.TemporaryDirectory() as tmp:
+        rc = app.main(["--size", str(config.width), str(config.height), "--backend", dev.type,
+                       "-s", "shadow", "--frames", "4", "--no-fps", "--profile", tmp])
+        check(rc == 0, f"app.main --profile returned {rc}")
+        with open(f"{tmp}/{TRACE_FILE}") as f:
+            events = json.load(f)["traceEvents"]
+    # Device work in the trace: kernels, copies and fills (one stream, so
+    # they do not overlap); idle is the rest of their span.
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    kernels = sum(e["cat"] == "kernel" for e in gpu)
+    check(kernels > 0, "the --profile trace holds no GPU kernel")
+    busy = sum(e["dur"] for e in gpu) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in gpu) - min(e["ts"] for e in gpu)) / 1e3
+    after = stage_breakdown(shadow_scene, iters=24)[1]["full"]
+    phase("profile", f"app.main -s shadow --frames 4 --profile: rc 0; trace {len(events)} events, {kernels} "
+          f"GPU kernels and {len(gpu) - kernels} copies/fills, device busy {busy:.3f} ms of a {span:.3f} ms "
+          f"span ({1 - busy / span:.1%} idle; 4 frames, profiler on); shadow frame by the stage profile "
+          f"(24 frames, CUDA events | host ms per frame) {before['device']:.3f} | {before['host']:.3f} "
+          f"before the profiler ran in this process, {after['device']:.3f} | {after['host']:.3f} "
+          f"after  [{smi}]")
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; this check needs a GPU")
-    from tiny_renderer_tpu_torch import RenderConfig, Scene
+    from tiny_renderer_tpu_torch import RenderConfig, Scene, register_pipeline
     from tiny_renderer_tpu_torch.app import flagship_model
     from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.examples import custom_pipeline as example
     from tiny_renderer_tpu_torch.models.stress import adversarial, screen_scene
     from tiny_renderer_tpu_torch.ops import mathlib as ml
     from tiny_renderer_tpu_torch.ops import raster_cuda, raster_probe
@@ -319,6 +679,17 @@ def main() -> int:
     check(num_planes(pipe_specs["darboux-tex16"]) == 4 and num_planes(pipe_specs["darboux-mixed"]) == 15
           and sum(m == "const" for _, _, m in pipe_specs["darboux-mixed"]) == 4,
           f"darboux kernel specs {pipe_specs['darboux-tex16']}, {pipe_specs['darboux-mixed']}")
+    # The custom pipelines of the entry phase (toon and glow from the
+    # example); fog's spec is a phase-2 layout no built-in has.
+    example.register()
+    register_pipeline("fog", shade_fog, varying_spec=FOG_SPEC, maps=("texture",), two_pass=True,
+                      overwrite=True)
+    th, tw = tex["texture"].shape[:2]
+    for t in (0, 16):
+        pipe_specs[f"fog-tex{t}"] = kernel_varying_spec("fog", tex, tile=t)
+        want = f"texidx:{tw}:{th}:{t}" if t else f"texidx:{tw}:{th}"
+        check(pipe_specs[f"fog-tex{t}"] == (("texidx", 1, want), ("zfrag", 1, "zfrag")),
+              f"fog kernel spec {pipe_specs[f'fog-tex{t}']}")
 
     eye = torch.eye(4, device=dev)
 
@@ -796,6 +1167,15 @@ def main() -> int:
               f"{bd[3]} bytes), {bd[0] / dms:.2%} of it (shadow's 3 planes: {ms['planes'][2]:.4f} ms on "
               f"the device)  [{smi}]")
     lap("timing")
+
+    # -- 8. entry -------------------------------------------------------------
+    entry_phase(dev, model, RenderConfig(), smi, record, twin, pcams, pligs, scene,
+                pipe_runs["default"][1])
+    lap("entry")
+
+    # -- 9. profile -----------------------------------------------------------
+    profile_phase(dev, RenderConfig(), smi, scene)
+    lap("profile")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
     rp = "tiny_renderer_tpu/ops/raster_pallas.py"
     entries = [
@@ -813,7 +1193,7 @@ def main() -> int:
     ]
 
     def by_pipeline(mode):
-        return {p: mode_paths[mode][p] for p in PIPELINE_ORDER if p in mode_paths[mode]}
+        return {p: mode_paths[mode][p] for p in (*PIPELINE_ORDER, *CUSTOM_LAUNCHES) if p in mode_paths[mode]}
 
     for name, _r, _k, mode, _t in entries:
         check(mode_paths[mode], f"{name}: no path launched it")

@@ -27,6 +27,16 @@ _SCRIPT = textwrap.dedent("""
         other.set_light_direction([0.3, 0.0, 0.95])
         assert (other.get_frame_buffer() > 0).any(), name
     assert flagship_model().num_triangles == 5096
+    # The entry points above the frame path.
+    import tiny_renderer_tpu_torch.__main__
+    import tiny_renderer_tpu_torch.pipelines.profile
+    import tiny_renderer_tpu_torch.utils.timing
+    import tiny_renderer_tpu_torch.viewer_x11
+    from tiny_renderer_tpu_torch.examples import custom_pipeline, serve_http
+    custom_pipeline.register()
+    glow = trt.Scene(model, "glow", trt.RenderConfig(width=128, height=64), device="cpu",
+                     vertex_attrs={"glow": custom_pipeline.glow_attribute(model)})
+    assert (glow.get_frame_buffer() > 0).any()
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tiny_renderer_tpu."))]
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
     print("OK", trt.PIPELINE_NAMES)

@@ -9,18 +9,24 @@ Ported so far: all seven shader pipelines end to end (``default``,
 ``occlusion``) — assets, the matrix stack, the batched vertex stage, CSR
 tile binning, the tile raster as hand-written CUDA kernels
 (``csrc/raster.cu``, with plain torch twins for CPU tensors), the
-strip-compacted and full-screen shades, Scene and a headless CLI.  Tensor conventions at the public functions are the JAX
-package's (dict keys, shapes, dtypes), so ``convert`` carries its state
-across unchanged.
+strip-compacted and full-screen shades — and the entry points around them:
+``register_pipeline`` for custom shaders, Scene, the CLI
+(``python -m tiny_renderer_tpu_torch``) with its interactive window and
+per-stage profile, and the examples (``examples.custom_pipeline``,
+``examples.serve_http``).  Tensor conventions at the public functions are
+the JAX package's (dict keys, shapes, dtypes), so ``convert`` carries its
+state across unchanged.
 """
 
 from .assets.model import Model, load_model
 from .config import RenderConfig
-from .pipelines.frame import PIPELINES
+from .pipelines.frame import PIPELINES, register_pipeline, unregister_pipeline
 from .scene import Scene
 
 __version__ = "0.1.0"
 
+# The seven built-ins; the live registry is pipelines.frame.PIPELINES.
 PIPELINE_NAMES = tuple(PIPELINES)
 
-__all__ = ["RenderConfig", "Scene", "Model", "load_model", "PIPELINE_NAMES", "__version__"]
+__all__ = ["RenderConfig", "Scene", "Model", "load_model", "PIPELINE_NAMES",
+           "register_pipeline", "unregister_pipeline", "__version__"]

@@ -29,7 +29,8 @@ def to_tensor(value, device) -> torch.Tensor:
 
 def scene_arrays(geom, textures, device):
     """(geom, textures) dicts of arrays -> the same dicts of tensors on
-    `device`, keys and dtypes unchanged."""
+    `device`, keys and dtypes unchanged (custom ``attr:<name>`` vertex
+    attributes included)."""
     return (
         {k: to_tensor(v, device) for k, v in geom.items()},
         {k: to_tensor(v, device) for k, v in textures.items()},

@@ -20,6 +20,10 @@ package (each bit-identical to the default frame):
 * ``idx_int16``, ``csr_indirect=False``, ``strip_pack_words=False``,
   ``tex_tile``, ``shadow_tile``, ``strip_len``: layouts.
 
+Custom pipelines join the seven through ``register_pipeline``, which
+writes the same tables the built-ins live in (``PIPELINES``,
+``shaders.VARYING_SPECS``, ``shaders.PIPELINE_MAPS``, ``_GATHER_KEYS``).
+
 Everything runs eagerly on the device of the input tensors: CUDA tensors
 launch the CUDA raster kernels, CPU tensors run their plain torch twins.
 ``row_bands > 1`` (the TPU's on-chip memory banding) raises
@@ -74,12 +78,168 @@ _GATHER_KEYS = {
     "occlusion": ("zv",),
 }
 
+# The varying vocabulary custom pipelines may compose from: varying name ->
+# (allowed modes, triangle_setup gather key, components).
+_VARYING_VOCAB = {
+    "uv": (("interp",), "uv", 2),
+    "intensity": (("interp",), "intensity", 1),
+    "local_z": (("interp",), "t_norm", 3),
+    "zfrag": (("zfrag",), "zv", 1),
+    "row0": (("const",), "row0n", 3),
+    "row1": (("const",), "row1n", 3),
+    "du": (("const",), "du", 2),
+    "dv": (("const",), "dv", 2),
+}
+_VALID_NEEDS = ("face_intensity", "vertex_intensity", "darboux")
 
-def _check_config(config):
-    """Refuse the one setting the port does not implement."""
+# Per-name registration generation, bumped when a registration is replaced
+# or removed.  The eager frame path looks the name up on every call, so it
+# never serves a stale shade; the counter is the key for any cache that
+# holds a pipeline's shade (as the JAX package's jit caches do).
+_REGISTRY_GEN = {}
+
+
+def registry_generation(name):
+    """Current registration generation of a pipeline name."""
+    return _REGISTRY_GEN.get(name, 0)
+
+
+def register_pipeline(name, shade, *, varying_spec, maps=(), needs=(),
+                      two_pass=False, overwrite=False):
+    """Register a custom shader pipeline under `name`.
+
+    Once registered, the name works everywhere a built-in does: Scene,
+    render_frame, render_burst, the CLI's -s (when registered before
+    build_arg_parser) and the frame server.  Registration composes the
+    existing vertex-stage outputs, plus any number of USER vertex
+    attributes: a varying named "attr:<x>" declares a (T, 3, comps) float32
+    tensor the caller supplies under that exact key in the geometry dict
+    (per triangle corner, like pre-expanded uv), interpolated with the same
+    barycentric accumulation order as uv.
+
+    Args:
+      name: pipeline name.
+      shade: fragment shading function on tensors,
+        ``shade(frag, uniforms, textures, config) -> (..., 3) u8``.  `frag`
+        carries the interpolated varyings named in varying_spec plus
+        "x"/"y" pixel coords (and "shadow_buffer" when two_pass; fetch it
+        via shaders._shadow_fetch with shaders.plane_tile_effective).  Use
+        shaders.sample_frag for texture reads so the packed, swizzled and
+        texel-index paths apply.
+      varying_spec: tuple of (name, components, mode) drawn from the
+        vocabulary: uv(2, interp), intensity(1, interp), local_z(3,
+        interp), zfrag(1, zfrag), row0/row1(3, const), du/dv(2, const) — or
+        "attr:<x>"(1-8, interp) for a custom per-vertex attribute supplied
+        as geom["attr:<x>"] with shape (num_triangles, 3, components).
+      maps: texture-map names the shade samples (word-packed together).
+      needs: vertex-stage extras, subset of {face_intensity,
+        vertex_intensity, darboux}.
+      two_pass: render the light-view depth pass first (the shade then
+        receives "shadow_buffer" and the shadow pass 2 uniforms).
+      overwrite: allow replacing an existing registration.
+
+    Returns the PipelineSpec.  Raises ValueError on unknown varyings,
+    modes, component counts or needs.
+    """
+    if name in PIPELINES and not overwrite:
+        raise ValueError(
+            f"pipeline {name!r} already registered (pass overwrite=True "
+            "to replace it)"
+        )
+    gather = []
+    for vname, comps, mode in varying_spec:
+        if vname.startswith("attr:"):
+            if mode != "interp":
+                raise ValueError(
+                    f"custom vertex attribute {vname!r} supports mode "
+                    f"'interp', got {mode!r}"
+                )
+            if not isinstance(comps, int) or not 1 <= comps <= 8:
+                raise ValueError(
+                    f"custom vertex attribute {vname!r} must have 1-8 "
+                    f"components, got {comps!r}"
+                )
+            if vname not in gather:
+                gather.append(vname)
+            continue
+        if vname not in _VARYING_VOCAB:
+            raise ValueError(
+                f"unknown varying {vname!r}; available: "
+                f"{', '.join(sorted(_VARYING_VOCAB))}, or 'attr:<name>' "
+                "for a custom per-vertex attribute"
+            )
+        modes, key, want_comps = _VARYING_VOCAB[vname]
+        if mode not in modes:
+            raise ValueError(
+                f"varying {vname!r} supports mode {modes[0]!r}, got {mode!r}"
+            )
+        if comps != want_comps:
+            # A wrong count would misalign every later varying's planes and
+            # record lanes.
+            raise ValueError(
+                f"varying {vname!r} has {want_comps} components, "
+                f"got {comps}"
+            )
+        if key not in gather:
+            gather.append(key)
+    for n in needs:
+        if n not in _VALID_NEEDS:
+            raise ValueError(
+                f"unknown vertex-stage need {n!r}; valid: {_VALID_NEEDS}"
+            )
+    # Setup keys exist only when the need that produces them is on.
+    if "intensity" in gather and not (
+        "face_intensity" in needs or "vertex_intensity" in needs
+    ):
+        raise ValueError(
+            "the 'intensity' varying requires needs to include "
+            "'face_intensity' or 'vertex_intensity'"
+        )
+    if any(k in gather for k in ("t_norm", "row0n", "row1n", "du", "dv")) \
+            and "darboux" not in needs:
+        raise ValueError(
+            "local_z/row0/row1/du/dv varyings require needs to include "
+            "'darboux'"
+        )
+    spec = PipelineSpec(name, tuple(needs), shade, two_pass=two_pass)
+    if name in PIPELINES:
+        _REGISTRY_GEN[name] = registry_generation(name) + 1
+    PIPELINES[name] = spec
+    VARYING_SPECS[name] = tuple(varying_spec)
+    shaders.PIPELINE_MAPS[name] = tuple(maps)
+    _GATHER_KEYS[name] = tuple(gather)
+    return spec
+
+
+def unregister_pipeline(name):
+    """Remove a pipeline registered with register_pipeline (built-ins
+    refuse: the reference's seven names are API surface)."""
+    if name in _BUILTIN_PIPELINES:
+        raise ValueError(f"cannot unregister built-in pipeline {name!r}")
+    if name in PIPELINES:
+        _REGISTRY_GEN[name] = registry_generation(name) + 1
+    for table in (PIPELINES, VARYING_SPECS, shaders.PIPELINE_MAPS, _GATHER_KEYS):
+        table.pop(name, None)
+
+
+_BUILTIN_PIPELINES = frozenset(PIPELINES)
+
+
+def _check_config(config, pipeline):
+    """Refuse what the port does not implement: row bands (TPU on-chip
+    memory banding), and custom "attr:" varyings under the full-screen
+    shade, whose kernel records have no lanes for them (the JAX package
+    fails there too, with a KeyError in pack_triangle_records)."""
     if config.row_bands > 1:
         raise NotImplementedError(
             "not ported to the torch frame path: row_bands (TPU on-chip memory banding)"
+        )
+    attrs = tuple(n for (n, _, _) in VARYING_SPECS[pipeline] if n.startswith("attr:"))
+    if attrs and not config.compact_shade:
+        raise ValueError(
+            f"pipeline {pipeline!r} declares custom vertex attributes {attrs}, which "
+            "the full-screen shade (compact_shade=False) cannot interpolate: the raster "
+            "kernel's records have no lanes for them; keep compact_shade=True"
         )
 
 
@@ -210,6 +370,13 @@ def _gather_fragments(setup, idx, keys, pixel_coords):
     layout = {}
     pos = 7
     for k in keys:
+        if k not in setup:
+            # Only reachable for custom "attr:" varyings: the built-in keys
+            # exist whenever their needs are validated.
+            raise ValueError(
+                f"pipeline requires the custom vertex attribute {k!r}: "
+                f"supply geom[{k!r}] with shape (num_triangles, 3, k)"
+            )
         a = setup[k]
         flat = a.reshape(a.shape[0], -1).to(torch.float32)
         layout[k] = (pos, flat.shape[1], tuple(a.shape[1:]))
@@ -344,7 +511,7 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
     computed there.
     """
     config = config.resolve(pipeline)
-    _check_config(config)
+    _check_config(config, pipeline)
     spec = PIPELINES[pipeline]
     H, W = config.height, config.width
     dev = light_direction.device

@@ -1,0 +1,179 @@
+"""Per-stage time breakdown of a frame (``tiny_renderer_tpu.pipelines.profile``).
+
+A frame is hundreds of eager launches, so neither the host clock nor one
+kernel's time attributes it.  This module runs CUMULATIVE PREFIXES of
+render_frame — vertex (the uniforms included) | + binning | + raster | the
+full frame with needs_z=False (the burst posture) — each taking the same
+branches render_frame takes for the scene's pipeline and config, and
+reports the differences between consecutive prefixes as stage costs, with
+the uniforms alone (the matrix stack, part of the vertex stage) and the
+device-to-host frame fetch timed on their own.
+
+Protocol: each prefix runs once to warm up, then `iters` times over
+slightly different camera/light angles.  On a GPU the run is timed twice:
+between two CUDA events (the device's span from the first launch to the
+last) and by the host clock up to a device synchronize; a host-bound frame
+shows the two close together.  On the CPU only the host clock exists.
+Prefixes are separate runs, so the deltas are attributions, not a
+schedule.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..ops import mathlib as ml
+from ..ops.binning import bin_triangles
+from ..ops.vertex import triangle_setup
+from ..utils.timing import StageTimer
+from .frame import (
+    PIPELINES,
+    _check_config,
+    _fused_raster,
+    _planes_spec,
+    _rasterize,
+    _strip_mask_len,
+    _use_fused_raster,
+    render_frame,
+)
+from .shaders import kernel_varying_spec
+
+STAGES = ("vertex", "bin", "raster", "full")
+STAGE_LABELS = {
+    "vertex": "vertex setup",
+    "bin": "+ binning",
+    "raster": "+ raster",
+    "full": "+ shade (full frame)",
+}
+
+
+def _prefix_fn(pipeline, config, stage):
+    """fn(geom, textures, light_direction, look_from, look_at, up) running
+    render_frame up to `stage` (one of STAGES, or "uniforms": the matrix
+    stack alone) with render_frame's branch choices."""
+    spec = PIPELINES[pipeline]
+
+    def fn(geom, textures, light_direction, look_from, look_at, up):
+        if stage == "uniforms":
+            if spec.two_pass:
+                ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
+                return ml.shadow_pass_2_prepare(config, light_direction, look_from, look_at, up)
+            return ml.default_prepare(config, light_direction, look_from, look_at, up)
+        if stage == "full":
+            return render_frame(geom, textures, light_direction, look_from, look_at, up,
+                                pipeline=pipeline, config=config, needs_z=False)["frame"]
+        setup1 = None
+        if spec.two_pass:
+            u1 = ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
+            setup1 = triangle_setup(geom, u1, config, matrix_key="shadow_matrix", cull=False)
+            uniforms = ml.shadow_pass_2_prepare(config, light_direction, look_from, look_at, up)
+        else:
+            uniforms = ml.default_prepare(config, light_direction, look_from, look_at, up)
+        setup = triangle_setup(geom, uniforms, config, needs=spec.needs)
+        # The camera pass bins and rasters the spec render_frame gives it:
+        # no varying lanes for the strip shade (the planes spec under
+        # strip_planes), the kernel spec for the full-screen shade.
+        compact = config.compact_shade
+        pspec = _planes_spec(pipeline, textures, config) if compact else None
+        kspec = (pspec or ()) if compact else kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
+        if stage == "vertex":
+            return setup["rx"]
+        if stage == "bin":
+            if setup1 is not None:
+                bin_triangles(setup1, config)
+            return bin_triangles(setup, config, kspec)[0]
+        if _use_fused_raster(spec, config, setup, pspec, needs_z=False):
+            return _fused_raster(setup1, setup, config)[1]
+        if setup1 is not None:
+            _rasterize(setup1, config, emit_idx=False)
+        return _rasterize(setup, config, spec=kspec, emit_z=False,
+                          emit_strips=_strip_mask_len(config) if compact else 0)[1]
+
+    return fn
+
+
+def _views(n, device):
+    """n (light_direction, look_from, look_at, up) tuples on `device`, the
+    camera and light stepping 1e-4 rad per frame around a fixed pose."""
+    look_at = torch.zeros(3, dtype=torch.float32, device=device)
+    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=device)
+    out = []
+    for i in range(n):
+        ca, la = np.float32(0.35 + 1e-4 * i), np.float32(-0.6 + 1e-4 * i)
+        light = torch.tensor([np.sin(la), 0.0, np.cos(la)], dtype=torch.float32, device=device)
+        look_from = torch.tensor([np.sin(ca), 0.0, np.cos(ca)], dtype=torch.float32, device=device)
+        out.append((light, look_from, look_at, up))
+    return out
+
+
+def stage_breakdown(scene, iters: int = 12):
+    """Per-stage ms of a Scene's pipeline, config and device.
+
+    Returns (deltas, cumulative): dicts of stage -> {"host": ms,
+    "device": ms, or None on the CPU}, per frame.  deltas attribute each
+    stage's share; deltas["uniforms"] is the part of the vertex stage spent
+    in the matrix stack, deltas["fetch"] the device-to-host copy of one
+    frame (Scene.get_frame_buffer)."""
+    geom, textures = scene._geom, scene._textures
+    pipeline, config = scene.pipeline_name, scene.config
+    _check_config(config, pipeline)
+    cuda = scene.device.type == "cuda"
+    anchor = geom["pos_tri"]  # StageTimer synchronizes this tensor's device
+    views = _views(iters, scene.device)
+    timer = StageTimer()
+
+    def clock(name, run, n):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2)) if cuda else (None, None)
+        scene.synchronize()
+        with timer.stage(name, sync=anchor):
+            if cuda:
+                start.record()
+            run()
+            if cuda:
+                end.record()
+        return {"host": timer.totals[name] * 1e3 / n,
+                "device": start.elapsed_time(end) / n if cuda else None}
+
+    cumulative = {}
+    for stage in STAGES:
+        fn = _prefix_fn(pipeline, config, stage)
+        fn(geom, textures, *views[0])  # warm-up
+        cumulative[stage] = clock(stage, lambda: [fn(geom, textures, *v) for v in views], iters)
+
+    fn = _prefix_fn(pipeline, config, "uniforms")
+    fn(geom, textures, *views[0])
+    uniforms = clock("uniforms", lambda: [fn(geom, textures, *v) for v in views], iters)
+    scene.render()
+    n_fetch = max(2, iters // 2)
+    fetch = clock("fetch", lambda: [scene.get_frame_buffer() for _ in range(n_fetch)], n_fetch)
+
+    deltas, prev = {}, {"host": 0.0, "device": 0.0}
+    for stage in STAGES:
+        deltas[stage] = {k: None if v is None else v - prev[k] for k, v in cumulative[stage].items()}
+        prev = cumulative[stage]
+    deltas["uniforms"] = uniforms
+    deltas["fetch"] = fetch
+    return deltas, cumulative
+
+
+def print_stage_breakdown(scene, iters: int = 6, out=print):
+    """Print stage_breakdown: CUDA-event and host-clock ms per stage on a
+    GPU, host-clock ms on the CPU.  Returns the deltas."""
+    deltas, cumulative = stage_breakdown(scene, iters)
+    cuda = deltas["full"]["device"] is not None
+    cfg = scene.config
+    out(f"per-stage time of '{scene.pipeline_name}' at {cfg.width}x{cfg.height} on {scene.device}, "
+        f"{iters} frames per prefix (cumulative-prefix deltas, ms per frame; "
+        + ("CUDA events | host clock):" if cuda else "host clock):"))
+
+    def fmt(t):
+        return f"{t['device']:8.3f} | {t['host']:8.3f}" if cuda else f"{t['host']:8.3f}"
+
+    for stage in STAGES:
+        out(f"  {STAGE_LABELS[stage]:22s} {fmt(deltas[stage])} ms"
+            f"   (prefix total {fmt(cumulative[stage])} ms)")
+        if stage == "vertex":
+            out(f"    {'of which uniforms':20s} {fmt(deltas['uniforms'])} ms")
+    out(f"  {'frame fetch (blit)':22s} {fmt(deltas['fetch'])} ms")
+    return deltas

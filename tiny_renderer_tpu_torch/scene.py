@@ -25,8 +25,9 @@ class Scene:
     """A model, a pipeline and camera/light state, rendered on `device`
     ("cuda" runs the CUDA raster kernel, "cpu" its plain torch twin)."""
 
-    def __init__(self, model: Model, pipeline_name: str = "shadow",
-                 config: RenderConfig | None = None, device="cuda"):
+    def __init__(self, model: Model, pipeline_name: str = "default",
+                 config: RenderConfig | None = None, device="cuda",
+                 vertex_attrs: dict | None = None):
         if pipeline_name not in PIPELINES:
             raise ValueError(
                 f"Provided pipeline name is not supported! ({pipeline_name!r}; "
@@ -56,6 +57,12 @@ class Scene:
         # Per-triangle attributes expanded and textures packed once, not
         # per frame.
         self._geom = expand_geometry(geom)
+        # Custom per-vertex attributes for registered pipelines that declare
+        # "attr:<name>" varyings (register_pipeline): each a
+        # (num_triangles, 3, k) float array, per triangle corner.
+        for aname, arr in (vertex_attrs or {}).items():
+            key = aname if aname.startswith("attr:") else f"attr:{aname}"
+            self._geom[key] = to_tensor(np.asarray(arr, np.float32), self.device)
         self._textures = prepack_textures(textures, pipeline_name, tile=self.config.tex_tile)
         self._frame_fn = make_frame_fn(pipeline_name, self.config)
 
@@ -68,6 +75,11 @@ class Scene:
         self._overflow_warned = False
 
     # -- reference API ------------------------------------------------------
+
+    def clear(self):
+        """Frames are recomputed from the scene state; kept for API parity
+        with scene.rs:128-137."""
+        self._out = None
 
     def set_light_direction(self, light_direction):
         self._light_direction = np.asarray(light_direction, np.float32)
