@@ -58,7 +58,32 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              burst, with the launches each config implies; and darboux
              with 512^2 normal maps, whose full-screen shade (the 15-plane
              reference spec) must equal its strip shade (per-map samplers).
-7. timing  — kernel and twin ms per launch per mode at the flagship shapes
+7. parallel — the scale-out path (parallel.sharding).  On the random soups
+             and the flagship, every kernel mode on a band of 5 tile rows
+             at row tile offsets 1, 3 and the last band, binned for that
+             band (K1 z, idx, z+idx, int16, strips SL 8 and 16, phase 2
+             under shadow's spec, gathered records; K2): bit-identical to
+             its twin and to the same rows of the full-frame launch.  The
+             flagship shadow frame at 800x800 on 5 row shards of one card
+             (make_row_mesh([cuda:0] * 5)) under the default config,
+             fuse_passes, replicate_pass1, shard_triangles, needs_z=False
+             and strips + planes: frame, z, shadow and overflow
+             bit-identical to render_frame, with 5 K1 launches per pass per
+             frame (5 K2 under fuse_passes).  render_batch_sharded (phong,
+             4 frames, 2 x 5 mesh) and render_sequence_pipelined (shadow, 3
+             frames, 2 stages x 5 rows): every frame equal to its
+             single-device render.  The dense backend: coverage equal to
+             the kernel's on both passes, winners apart on < 0.2% of
+             pixels, the frame within 0.5% of the kernel frame, and on 8
+             shards of 100 rows bit-identical to the dense frame.  The
+             sharded example in process with its defaults: PNG bytes equal
+             to render_frame's.  Times: the sharded frame against the
+             single-device frame (in turns) and the dense frame (host
+             clock), the
+             banded K1 and K2 launches of one sharded frame (paced, twin,
+             device ms) beside their bound and the card's name and power
+             limit.
+8. timing  — kernel and twin ms per launch per mode at the flagship shapes
              (CUDA events around launches paced by the host, as the times
              before the redesign were taken, and the kernel's device time
              with the launch queue held full), beside those earlier times
@@ -69,7 +94,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              4-plane and 15-plane specs (paced, twin and device times)
              beside its bound;
              beside the card's name and power limit.
-8. entry   — the entry points above the frame path, each at 800x800 on the
+9. entry   — the entry points above the frame path, each at 800x800 on the
              flagship scene.  Registry: custom pipelines registered with
              register_pipeline — toon (one pass, uv + intensity), fog
              (two_pass, uv + zfrag, reads the shadow buffer) and glow (the
@@ -91,7 +116,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              angle, /healthz ok.  Prints the stage breakdown of shadow and
              default (CUDA-event and host ms per stage), ms per served
              request and interactive ms per frame.
-9. profile — the CLI with --profile (torch.profiler): the trace's GPU
+10. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
              profiler ran (last, so that no other measurement follows the
@@ -99,7 +124,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 
 Each phase prints its seconds.  Launch counts are set to 0 just before each
 path is driven and read just after (the kernels line's launches_by_pipeline
-includes the custom pipelines toon, fog and glow).  Prints a JSON line of kernel results
+includes the custom pipelines toon, fog and glow, and the sharded paths).  Prints a JSON line of kernel results
 (time paced by the host as "ms", device time as "device_ms", launches in
 all the paths driven and by pipeline, the pipelines whose paths launched
 it, error, and the bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
@@ -182,6 +207,26 @@ def pipeline_knobs(name):
         knobs["fuse"] = (dict(fuse_passes=True), {"fused": 1})
     return knobs
 
+
+# The parallel phase: 800 rows over 5 shards of 160 rows (5 tile rows of
+# 32), a band of that many tile rows at each offset of BAND_OFFSETS ("last":
+# the frame's last band), and the sharded configs with the launches each
+# makes per frame (every other count 0).
+ROW_SHARDS = 5
+BAND_TILE_ROWS = 5
+BAND_OFFSETS = (1, 3, "last")
+SHARD_CONFIGS = {
+    "default": ({}, True, {"raster": 10, "offset": 8}),
+    "fuse_passes": (dict(fuse_passes=True), False, {"fused": 5, "fused_offset": 4}),
+    "replicate_pass1": (dict(replicate_pass1=True), True, {"raster": 10, "offset": 4}),
+    "shard_triangles": (dict(shard_triangles=True), True, {"raster": 10, "offset": 8}),
+    "needs_z=False": ({}, False, {"raster": 10, "offset": 8}),
+    "strips+planes": (dict(strip_mask=True, strip_planes=True), True,
+                      {"raster": 10, "offset": 8, "strips": 5, "planes": 5}),
+}
+N_BATCH_FRAMES = 4
+N_PP_FRAMES = 3
+DENSE_SHARDS = 8  # 8 x 100 rows: the dense backend has no tile grid
 
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
@@ -352,6 +397,42 @@ def bound(passes, out_bytes, planes=(), covered=0):
     ops += covered * OPS_PHASE2_BASE if planes else 0
     t_ops, t_bytes = ops / PEAK_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes", ops, nbytes)
+
+
+def time_launches(fn, n, hold=False):
+    """ms per call of fn over n calls, by CUDA events after warm-up: the
+    calls as the host paces them, or with hold, the device's work alone
+    (the device sleeps while the calls are queued, twice the time the host
+    took to queue them at up to 2 GHz, so the queue stays full)."""
+    for _ in range(2):
+        fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    if hold:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        queued = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(2 * queued * 2e9))
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_ms(fn, n):
+    """Best host-clock ms of n calls of fn, each ended by a synchronize."""
+    best = float("inf")
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    return best
 
 
 def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scene, default_scene):
@@ -611,6 +692,281 @@ def profile_phase(dev, config, smi, shadow_scene):
           f"after  [{smi}]")
 
 
+def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16):
+    """Phase 7: the scale-out path (parallel.sharding) at 800x800.  First
+    every kernel mode on a band of tile rows at a nonzero row offset, bit
+    for bit against its twin and against the same rows of the full-frame
+    launch; then the sharded frames of the flagship shadow scene on 5 row
+    shards of one card against the single-device frame, the batch and the
+    pipelined paths, the dense backend, and the sharded example.  Returns
+    the banded launches' (paced, twin, device) ms per sharded frame and
+    their bounds.  base: the config every scene starts from (800x800)."""
+    from tiny_renderer_tpu_torch import Scene
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.examples import sharded_render
+    from tiny_renderer_tpu_torch.ops import raster_cuda
+    from tiny_renderer_tpu_torch.ops.binning import bin_triangles
+    from tiny_renderer_tpu_torch.ops.mathlib import F32_MIN
+    from tiny_renderer_tpu_torch.ops.raster_dense import rasterize_dense
+    from tiny_renderer_tpu_torch.parallel import (
+        make_pp_mesh, make_row_mesh, render_batch_sharded, render_frame_sharded,
+        render_sequence_pipelined)
+    from tiny_renderer_tpu_torch.pipelines.frame import render_frame
+    from tiny_renderer_tpu_torch.utils.png import png_bytes
+
+    t0 = time.perf_counter()
+    cfg = base.resolve("shadow")
+    n_cmp = [0]
+
+    def cmp(*args):
+        compare(*args)
+        n_cmp[0] += 1
+
+    k, th = BAND_TILE_ROWS, cfg.tile_h
+    grid = dict(tile_h=th, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)
+    band_grid = {**grid, "tiles_y": k}
+    band_cfg = dataclasses.replace(cfg, height=k * th)
+    band_gath = dataclasses.replace(band_cfg, csr_indirect=False)
+    gath_cfg = dataclasses.replace(cfg, csr_indirect=False)
+    modes = {**{m: (MODES[m], ()) for m in MODES},
+             "int16": (dict(emit_z=False, idx_dtype="int16"), ()),
+             "strips8": (dict(emit_z=False, emit_strips=8), ()),
+             "strips16": (dict(emit_z=False, emit_strips=16), ()),
+             "planes": (dict(emit_z=False, spec=spec16), spec16)}
+    offsets = [cfg.tiles_y - k if o == "last" else o for o in BAND_OFFSETS]
+
+    def rows(out, off):
+        """The band's rows of full-frame outputs (varys: planes first)."""
+        r = slice(off * th, (off + k) * th)
+        return [None if t is None else (t[:, r] if t.ndim == 3 else t[r]) for t in out]
+
+    for cname in ("soup0", "soup1", "soup2", "flagship"):
+        geom_np = cases[cname][0]
+        setups = passes(geom_np)["setup"]
+        for pname, setup in setups.items():
+            full = {}
+            for mname, (kw, spec) in modes.items():
+                full[mname] = raster_cuda.rasterize(*bin_triangles(setup, cfg, spec)[:3], **grid, **kw)
+            full["gathered"] = raster_cuda.rasterize(*bin_triangles(setup, gath_cfg)[:3], **grid)
+            for off in offsets:
+                for mname, (kw, spec) in modes.items():
+                    b = bin_triangles(setup, band_cfg, spec, row_tile_offset=off)[:3]
+                    got = raster_cuda.rasterize(*b, **band_grid, row_tile_offset=off, **kw)
+                    torch.cuda.synchronize()
+                    label = f"{cname}/{pname}/{mname}@row tile {off}"
+                    cmp("banded", label, got,
+                        raster_cuda.rasterize_reference(*b, **band_grid, row_tile_offset=off, **kw))
+                    cmp("banded", label + " vs the full frame", got, rows(full[mname], off))
+                b = bin_triangles(setup, band_gath, row_tile_offset=off)[:3]
+                got = raster_cuda.rasterize(*b, **band_grid, row_tile_offset=off)
+                torch.cuda.synchronize()
+                label = f"{cname}/{pname}/gathered@row tile {off}"
+                cmp("banded", label, got,
+                    raster_cuda.rasterize_reference(*b, **band_grid, row_tile_offset=off))
+                cmp("banded", label + " vs the full frame", got, rows(full["gathered"], off))
+        full = raster_cuda.rasterize_fused(*bin_triangles(setups["light"], cfg)[:3],
+                                           *bin_triangles(setups["camera"], cfg)[:3], **grid)
+        for off in offsets:
+            b = [bin_triangles(setups[p], band_cfg, row_tile_offset=off)[:3] for p in ("light", "camera")]
+            got = raster_cuda.rasterize_fused(*b[0], *b[1], **band_grid, row_tile_offset=off)
+            torch.cuda.synchronize()
+            label = f"{cname}/fused@row tile {off}"
+            cmp("banded_fused", label, got, raster_cuda.rasterize_fused_reference(
+                *b[0], *b[1], **band_grid, row_tile_offset=off))
+            cmp("banded_fused", label + " vs the full frame", got, rows(full, off))
+    phase("parallel", f"{n_cmp[0]} comparisons of kernels on a band of {k} tile rows at row "
+          f"tile offsets {offsets} (K1 z, idx, z+idx, int16, strips 8 and 16, phase 2 under shadow's "
+          "spec, gathered; K2) with their twins and with the full frame's rows: bit-identical "
+          f"(tolerance: exact)  [{time.perf_counter() - t0:.1f} s]")
+
+    # -- the sharded frame at full width, 5 row shards on one card --
+    t1 = time.perf_counter()
+    scene = Scene(model, "shadow", base, device=dev)
+    g, t = scene._geom, scene._textures
+    view = [to_tensor(np.float32(v), dev) for v in VIEW]
+    mesh = make_row_mesh([dev] * ROW_SHARDS)
+    check(mesh.shape == {"batch": 1, "rows": ROW_SHARDS}, f"mesh {mesh.shape}")
+    singles = {}
+    for name, (knobs, needs_z, per_frame) in SHARD_CONFIGS.items():
+        tc = time.perf_counter()
+        c = dataclasses.replace(base, **knobs).resolve("shadow")
+        single = render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=needs_z)
+        raster_cuda.reset_launches()
+        got = render_frame_sharded(g, t, *view, pipeline="shadow", config=c, mesh=mesh, needs_z=needs_z)
+        torch.cuda.synchronize()
+        counts = dict(raster_cuda.LAUNCHES)
+        record("shadow, row-sharded", counts)
+        want = {m: per_frame.get(m, 0) for m in counts}
+        check(counts == want, f"sharded {name}: launches {counts}, expected {want}")
+        for key in ("frame", "z", "shadow", "overflow"):
+            check((got[key] is None) == (single[key] is None) and (
+                got[key] is None or torch.equal(got[key], single[key])),
+                f"sharded {name}: {key} differs from the single-device frame")
+        check(not bool(got["overflow"]) and bool((got["frame"] > 0).any()), f"sharded {name}: frame")
+        singles[name] = (c, needs_z, single)
+        phase("parallel", f"render_frame_sharded {name} on {ROW_SHARDS} row shards of {dev}: frame, z, "
+              f"shadow, overflow bit-identical to render_frame; launches {counts}  "
+              f"[{time.perf_counter() - tc:.1f} s]")
+
+    # Batch and pipelined.
+    t1 = time.perf_counter()
+    ang = np.linspace(0.2, 1.0, N_BATCH_FRAMES, dtype=np.float32)
+    lights = to_tensor(np.stack([[np.sin(a), 0, np.cos(a)] for a in ang]).astype(np.float32), dev)
+    froms = to_tensor(np.stack([[np.sin(a + 0.2), 0, np.cos(a + 0.2)] for a in ang]).astype(np.float32), dev)
+    phong = Scene(model, "phong", base, device=dev)
+    bmesh = make_row_mesh([dev] * (2 * ROW_SHARDS), batch=2)
+    raster_cuda.reset_launches()
+    out = render_batch_sharded(phong._geom, phong._textures, lights, froms, view[2], view[3],
+                               pipeline="phong", config=phong.config, mesh=bmesh)
+    torch.cuda.synchronize()
+    counts = dict(raster_cuda.LAUNCHES)
+    record("phong, batch-sharded", counts)
+    n_off = N_BATCH_FRAMES * (ROW_SHARDS - 1)
+    check(counts == {m: {"raster": N_BATCH_FRAMES * ROW_SHARDS, "offset": n_off}.get(m, 0) for m in counts},
+          f"batch: launches {counts}")
+    for i in range(N_BATCH_FRAMES):
+        one = render_frame(phong._geom, phong._textures, lights[i], froms[i], view[2], view[3],
+                           pipeline="phong", config=phong.config)
+        check(torch.equal(out["frame"][i], one["frame"]) and torch.equal(out["z"][i], one["z"]),
+              f"batch frame {i} differs from its single-device render")
+    check(not bool(out["overflow"].any()), "batch: overflow")
+    pmesh = make_pp_mesh([dev] * (2 * ROW_SHARDS))
+    raster_cuda.reset_launches()
+    seq = render_sequence_pipelined(g, t, lights[:N_PP_FRAMES], froms[:N_PP_FRAMES], view[2], view[3],
+                                    pipeline="shadow", config=scene.config, mesh=pmesh)
+    torch.cuda.synchronize()
+    counts = dict(raster_cuda.LAUNCHES)
+    record("shadow, pipelined", counts)
+    want = {"raster": 2 * N_PP_FRAMES * ROW_SHARDS, "offset": 2 * N_PP_FRAMES * (ROW_SHARDS - 1)}
+    check(counts == {m: want.get(m, 0) for m in counts}, f"pipelined: launches {counts}")
+    for i in range(N_PP_FRAMES):
+        one = render_frame(g, t, lights[i], froms[i], view[2], view[3], pipeline="shadow",
+                           config=scene.config, needs_z=False)
+        check(torch.equal(seq["frame"][i], one["frame"]), f"pipelined frame {i} differs from render_frame")
+    check(not bool(seq["overflow"].any()), "pipelined: overflow")
+    phase("parallel", f"render_batch_sharded phong, {N_BATCH_FRAMES} frames on a (2 batch, {ROW_SHARDS} rows) "
+          f"mesh, and render_sequence_pipelined shadow, {N_PP_FRAMES} frames on a (2 stage, {ROW_SHARDS} "
+          f"rows) mesh: every frame bit-identical to its single-device render  "
+          f"[{time.perf_counter() - t1:.1f} s]")
+
+    # -- the dense backend --
+    t2 = time.perf_counter()
+    flag = passes(cases["flagship"][0])
+    H, W = cfg.height, cfg.width
+    flips = {}
+    for pname in ("light", "camera"):
+        _, di = rasterize_dense(flag["setup"][pname], H, W, cfg.tri_block)
+        ki = raster_cuda.rasterize(*flag[pname], **grid, emit_z=False)[1][:H, :W]
+        check(torch.equal(di >= 0, ki >= 0), f"dense {pname} pass: coverage differs from the kernel's")
+        flips[pname] = float((di != ki).float().mean())
+        check(flips[pname] < 0.002, f"dense {pname} pass: winners differ on {flips[pname]:.4%} of pixels")
+    kernel_frame = singles["default"][2]
+    dense = render_frame(g, t, *view, pipeline="shadow", config=scene.config, backend="dense")
+    fdiff = float((dense["frame"] != kernel_frame["frame"]).any(-1).float().mean())
+    check(fdiff < 0.005, f"dense frame differs from the kernel frame on {fdiff:.4%} of pixels")
+    for key in ("z", "shadow"):
+        check(torch.equal(dense[key] > F32_MIN, kernel_frame[key] > F32_MIN),
+              f"dense {key} coverage differs from the kernel's")
+    raster_cuda.reset_launches()
+    dmesh = make_row_mesh([dev] * DENSE_SHARDS)
+    dsh = render_frame_sharded(g, t, *view, pipeline="shadow", config=scene.config, mesh=dmesh,
+                               backend="dense")
+    torch.cuda.synchronize()
+    check(not any(raster_cuda.LAUNCHES.values()), f"the dense backend launched {raster_cuda.LAUNCHES}")
+    for key in ("frame", "z", "shadow", "overflow"):
+        check(torch.equal(dsh[key], dense[key]), f"dense sharded {key} differs from the dense frame")
+    phase("parallel", f"dense backend at {W}x{H}: coverage equal to the kernel's on both passes, winners "
+          f"differ on {flips['light']:.6%} (light) and {flips['camera']:.6%} (camera) of pixels (budget "
+          f"0.2%); dense frame vs kernel frame {fdiff:.6%} of pixels (budget 0.5%); on {DENSE_SHARDS} "
+          f"shards of {H // DENSE_SHARDS} rows bit-identical to the dense frame, 0 kernel launches  "
+          f"[{time.perf_counter() - t2:.1f} s]")
+
+    # -- the example, in process with its defaults --
+    t3 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/sharded.png"
+        raster_cuda.reset_launches()
+        sharded_render.main(["--out", path])
+        counts = dict(raster_cuda.LAUNCHES)
+        record("shadow, row-sharded", counts)
+        with open(path, "rb") as f:
+            got = f.read()
+    one = render_frame(g, t, to_tensor(np.float32(sharded_render.LIGHT), dev),
+                       to_tensor(np.float32(sharded_render.LOOK_FROM), dev), view[2], view[3],
+                       pipeline="shadow", config=scene.config, needs_z=False)
+    check(got == png_bytes(one["frame"].cpu().numpy()[::-1]), "the example's PNG differs from render_frame's")
+    check(counts["raster"] == 2 * ROW_SHARDS, f"example launches {counts}")
+    phase("parallel", f"examples.sharded_render (defaults: 800x800, {ROW_SHARDS} shards, cuda, kernel): PNG "
+          f"bytes equal to render_frame's, launches {counts}  [{time.perf_counter() - t3:.1f} s]")
+
+    # -- times --
+    # The single-device and the sharded frame in turns (single, sharded,
+    # sharded, single), best of 5 each time.
+    t4 = time.perf_counter()
+    c = singles["default"][0]
+    frame_fns = {
+        "single": lambda: render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=False),
+        "sharded": lambda: render_frame_sharded(g, t, *view, pipeline="shadow", config=c, mesh=mesh,
+                                                needs_z=False),
+    }
+    turns = {"single": [], "sharded": []}
+    for key in ("single", "sharded", "sharded", "single"):
+        turns[key].append(host_ms(frame_fns[key], 5))
+    frame_single, frame_sharded = min(turns["single"]), min(turns["sharded"])
+    frame_dense = host_ms(lambda: render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=False,
+                                               backend="dense"), 2)
+    # The banded launches of one sharded frame: each shard's light pass
+    # (depth only) and camera pass (index only), or its K2 launch.
+    work = {p: block_work(flag["setup"][p], flag[p], grid)["bbox"].reshape(cfg.num_tiles, -1).sum(1)
+            for p in ("light", "camera")}
+    tx = cfg.tiles_x
+    shard_bins = []
+    for d in range(ROW_SHARDS):
+        off = d * k
+        b = {p: bin_triangles(flag["setup"][p], band_cfg, row_tile_offset=off)[:3] for p in ("light", "camera")}
+        tests = {p: int(work[p][off * tx:(off + k) * tx].sum()) for p in b}
+        shard_bins.append((off, b, tests))
+
+    def k1_frame(fn):
+        def run():
+            for off, b, _ in shard_bins:
+                fn(*b["light"], **band_grid, row_tile_offset=off, emit_idx=False)
+                fn(*b["camera"], **band_grid, row_tile_offset=off, emit_z=False)
+        return run
+
+    def k2_frame(fn):
+        def run():
+            for off, b, _ in shard_bins:
+                fn(*b["light"], *b["camera"], **band_grid, row_tile_offset=off)
+        return run
+
+    ms = {
+        "banded": (time_launches(k1_frame(raster_cuda.rasterize), 40),
+                   time_launches(k1_frame(raster_cuda.rasterize_reference), 2),
+                   time_launches(k1_frame(raster_cuda.rasterize), 40, hold=True)),
+        "banded_fused": (time_launches(k2_frame(raster_cuda.rasterize_fused), 40),
+                         time_launches(k2_frame(raster_cuda.rasterize_fused_reference), 2),
+                         time_launches(k2_frame(raster_cuda.rasterize_fused), 40, hold=True)),
+    }
+    px = k * th * cfg.padded_width
+    k1_passes = [(*b[p], tests[p]) for _, b, tests in shard_bins for p in ("light", "camera")]
+    bounds = {"banded": bound(k1_passes, ROW_SHARDS * 2 * px * 4),
+              "banded_fused": bound(k1_passes, ROW_SHARDS * 2 * px * 4)}
+    phase("parallel", f"shadow frame at {W}x{H} (host clock + synchronize; best of 5, in turns single, "
+          f"sharded, sharded, single): single device {frame_single:.3f} ms "
+          f"({' / '.join(f'{v:.3f}' for v in turns['single'])}), {ROW_SHARDS} row shards on one card "
+          f"{frame_sharded:.3f} ms ({' / '.join(f'{v:.3f}' for v in turns['sharded'])}; "
+          f"{frame_sharded / frame_single:.2f}x); dense backend {frame_dense:.3f} ms (best of 2)  [{smi}]")
+    for key, label in (("banded", f"K1 banded, the {2 * ROW_SHARDS} launches of one sharded frame"),
+                       ("banded_fused", f"K2 banded, the {ROW_SHARDS} launches of one sharded frame")):
+        paced, twin_ms, dms = ms[key]
+        phase("parallel", f"{label}: {paced:.4f} ms paced by the host, {dms:.4f} ms on the device with the "
+              f"launch queue held full, twin {twin_ms:.4f} ms; bound {bounds[key][0]:.6f} ms by "
+              f"{bounds[key][1]} ({bounds[key][0] / dms:.2%} of it)  [{smi}]")
+    phase("parallel", f"times took {time.perf_counter() - t4:.1f} s")
+    return ms, bounds
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -743,7 +1099,8 @@ def main() -> int:
                       tiles_x=allon_cfg.tiles_x)
     allon_spec = kernel_varying_spec("shadow", tex, tile=allon_cfg.tex_tile)
     allon_cam = dict(emit_z=False, spec=allon_spec, emit_strips=allon_cfg.strip_len, idx_dtype="int16")
-    err = {k: 0.0 for k in ("depth", "gathered", "int16", "strips", "planes", "fused")}
+    err = {k: 0.0 for k in ("depth", "gathered", "int16", "strips", "planes", "fused", "banded",
+                            "banded_fused")}
     n_cmp, covered, n_masks = 0, {}, 0
 
     def compare(kind_, label, got, want):
@@ -1013,30 +1370,12 @@ def main() -> int:
           "(15-plane reference spec) bit-identical to the strip shade (per-map samplers)")
     lap("knobs")
 
-    # -- 7. timing ------------------------------------------------------------
-    def time_launches(fn, n, hold=False):
-        """ms per call of fn over n calls, by CUDA events after warm-up: the
-        calls as the host paces them, or with hold, the device's work alone
-        (the device sleeps while the calls are queued, twice the time the
-        host took to queue them at up to 2 GHz, so the queue stays full)."""
-        for _ in range(2):
-            fn()
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        if hold:
-            t0 = time.perf_counter()
-            for _ in range(n):
-                fn()
-            queued = time.perf_counter() - t0
-            torch.cuda.synchronize()
-            torch.cuda._sleep(int(2 * queued * 2e9))
-        start.record()
-        for _ in range(n):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(end) / n
+    # -- 7. parallel ----------------------------------------------------------
+    par_ms, par_bounds = parallel_phase(dev, model, RenderConfig(), smi, record, passes, compare, cases,
+                                        specs["planes-tex16"])
+    lap("parallel")
 
+    # -- 8. timing ------------------------------------------------------------
     def timed(key, label, kernel, twin):
         """(kernel ms paced by the host, twin ms, kernel ms on the device)."""
         ms = (time_launches(kernel, 200), time_launches(twin, 5), time_launches(kernel, 200, hold=True))
@@ -1168,12 +1507,12 @@ def main() -> int:
               f"the device)  [{smi}]")
     lap("timing")
 
-    # -- 8. entry -------------------------------------------------------------
+    # -- 9. entry -------------------------------------------------------------
     entry_phase(dev, model, RenderConfig(), smi, record, twin, pcams, pligs, scene,
                 pipe_runs["default"][1])
     lap("entry")
 
-    # -- 9. profile -----------------------------------------------------------
+    # -- 10. profile ----------------------------------------------------------
     profile_phase(dev, RenderConfig(), smi, scene)
     lap("profile")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
@@ -1190,10 +1529,17 @@ def main() -> int:
          "tex_tile 16)", f"{rp}:257", "planes", "planes", ms["planes"]),
         ("raster_fused (K2: light pass depth + camera pass idx in one launch)", f"{rp}:466",
          "fused", "fused", ms["fused"]),
+        (f"raster_depth at a row offset (K1 row_tile_offset > 0 on the row shards of parallel.sharding; "
+         f"each shard's light pass depth-only + camera pass idx-only, ms per frame of {ROW_SHARDS} shards)",
+         f"{rp}:155", "banded", "offset", par_ms["banded"]),
+        (f"raster_fused at a row offset (K2 row_tile_offset > 0 on the row shards under fuse_passes, ms "
+         f"per frame of {ROW_SHARDS} shards)", f"{rp}:480", "banded_fused", "fused_offset",
+         par_ms["banded_fused"]),
     ]
+    bounds.update(par_bounds)
 
     def by_pipeline(mode):
-        return {p: mode_paths[mode][p] for p in (*PIPELINE_ORDER, *CUSTOM_LAUNCHES) if p in mode_paths[mode]}
+        return dict(mode_paths[mode])
 
     for name, _r, _k, mode, _t in entries:
         check(mode_paths[mode], f"{name}: no path launched it")

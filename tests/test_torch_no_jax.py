@@ -37,6 +37,17 @@ _SCRIPT = textwrap.dedent("""
     glow = trt.Scene(model, "glow", trt.RenderConfig(width=128, height=64), device="cpu",
                      vertex_attrs={"glow": custom_pipeline.glow_attribute(model)})
     assert (glow.get_frame_buffer() > 0).any()
+    # The scale-out path and the dense backend.
+    from tiny_renderer_tpu_torch.examples import sharded_render
+    from tiny_renderer_tpu_torch.ops import raster_dense
+    from tiny_renderer_tpu_torch.parallel import make_row_mesh, render_frame_sharded
+    g, t = scene._geom, scene._textures
+    view = [torch.tensor(v, dtype=torch.float32)
+            for v in ([0.3, 0.0, 0.95], [0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])]
+    cfg = trt.RenderConfig(width=128, height=64, tile_h=8)
+    sharded = render_frame_sharded(g, t, *view, pipeline="shadow", config=cfg,
+                                   mesh=make_row_mesh([torch.device("cpu")] * 8))
+    assert (sharded["frame"] > 0).any() and not bool(sharded["overflow"])
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tiny_renderer_tpu."))]
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
     print("OK", trt.PIPELINE_NAMES)

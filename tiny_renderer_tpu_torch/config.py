@@ -60,7 +60,7 @@ class RenderConfig:
     # Max tile span of one triangle's bbox (rows x cols of tiles).
     max_span_y: int = 8
     max_span_x: int = 4
-    # Triangle block of the JAX dense raster (not ported).
+    # Triangles per scan step of the dense raster (backend="dense").
     tri_block: int = 64
     # Triangles per depth-loop iteration of the TPU kernel; the result is
     # invariant to it and the CUDA kernel has no such knob.
@@ -80,7 +80,10 @@ class RenderConfig:
     strip_planes: bool = False
     strip_len: int = 16
 
-    # Scale-out knobs of the JAX sharded paths (not ported).
+    # Scale-out knobs of parallel.sharding: the vertex stage sharded over
+    # the triangle axis, and the full-height light pass on every row shard
+    # instead of the gathered shadow map.  row_bands (the TPU's on-chip
+    # memory banding) is not ported: > 1 raises.
     shard_triangles: bool = False
     row_bands: int = 0
     replicate_pass1: bool = False

@@ -18,8 +18,10 @@ bin tile and walks only the 4x8 rects a candidate may cover; ``cull_masks``
 models that cull in plain torch (for accounting and tests; chip_smoke.py
 holds it to the kernel's own masks from the probe build, ``build(probe=
 True)``).  ``LAUNCHES`` counts kernel launches by mode: ``raster`` (every K1
-launch), ``fused`` (every K2 launch), and ``gathered``, ``int16``,
-``strips``, ``planes`` (the launches that ran that mode).
+launch), ``fused`` (every K2 launch), ``gathered``, ``int16``, ``strips``,
+``planes`` (the launches that ran that mode), and ``offset`` and
+``fused_offset`` (the K1 and K2 launches at a nonzero row_tile_offset: the
+row shards of parallel.sharding).
 """
 
 from __future__ import annotations
@@ -39,7 +41,8 @@ from .binning import BASE_LANES
 from .mathlib import F32_MIN
 
 # Kernel launches by mode (not counting the twins).
-LAUNCHES = dict.fromkeys(("raster", "fused", "gathered", "int16", "strips", "planes"), 0)
+LAUNCHES = dict.fromkeys(
+    ("raster", "fused", "gathered", "int16", "strips", "planes", "offset", "fused_offset"), 0)
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "raster.cu"
@@ -285,6 +288,7 @@ def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile
     LAUNCHES["int16"] += idx is not None and idx_t == torch.int16
     LAUNCHES["strips"] += emit_strips > 0
     LAUNCHES["planes"] += bool(planes)
+    LAUNCHES["offset"] += row_tile_offset != 0
     return z, idx, varys, strips
 
 
@@ -311,6 +315,7 @@ def _launch_fused(rec1, tris1, starts1, rec2, tris2, starts2, *, tile_h, tile_w,
     _raise_on(err, lib, "raster_fused")
     LAUNCHES["fused"] += 1
     LAUNCHES["gathered"] += tris1 is None
+    LAUNCHES["fused_offset"] += row_tile_offset != 0
     return shadow_z, idx
 
 

@@ -26,8 +26,11 @@ writes the same tables the built-ins live in (``PIPELINES``,
 
 Everything runs eagerly on the device of the input tensors: CUDA tensors
 launch the CUDA raster kernels, CPU tensors run their plain torch twins.
-``row_bands > 1`` (the TPU's on-chip memory banding) raises
-``NotImplementedError``.
+``backend="dense"`` (the JAX package's "jnp") replaces the binned raster
+with ``ops.raster_dense`` and the shade with the full-screen gather shade.
+The raster and shade helpers also take a window of rows (``rows``, ``y0``)
+for the row shards of ``parallel.sharding``.  ``row_bands > 1`` (the TPU's
+on-chip memory banding) raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ import torch
 from ..ops import mathlib as ml
 from ..ops import raster_cuda
 from ..ops.binning import bin_triangles, compact_scatter
+from ..ops.raster_dense import rasterize_dense
 from ..ops.vertex import triangle_setup
 from . import shaders
 from .shaders import VARYING_SPECS, compute_varyings, kernel_varying_spec
@@ -224,18 +228,27 @@ def unregister_pipeline(name):
 
 _BUILTIN_PIPELINES = frozenset(PIPELINES)
 
+# Raster backends: "kernel", the binned tile raster (CUDA kernels on CUDA
+# tensors, their twins on CPU tensors), and "dense", every triangle at every
+# pixel in plain torch (the JAX package's "jnp": the correctness backend
+# the sharded paths' pixel proofs run on).
+BACKENDS = ("kernel", "dense")
 
-def _check_config(config, pipeline):
-    """Refuse what the port does not implement: row bands (TPU on-chip
-    memory banding), and custom "attr:" varyings under the full-screen
-    shade, whose kernel records have no lanes for them (the JAX package
-    fails there too, with a KeyError in pack_triangle_records)."""
+
+def _check_config(config, pipeline, backend="kernel"):
+    """Refuse what the port does not implement: an unknown backend, row
+    bands (TPU on-chip memory banding), and custom "attr:" varyings under
+    the kernel's full-screen shade, whose kernel records have no lanes for
+    them (the JAX package fails there too, with a KeyError in
+    pack_triangle_records)."""
+    if backend not in BACKENDS:
+        raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
     if config.row_bands > 1:
         raise NotImplementedError(
             "not ported to the torch frame path: row_bands (TPU on-chip memory banding)"
         )
     attrs = tuple(n for (n, _, _) in VARYING_SPECS[pipeline] if n.startswith("attr:"))
-    if attrs and not config.compact_shade:
+    if attrs and backend == "kernel" and not config.compact_shade:
         raise ValueError(
             f"pipeline {pipeline!r} declares custom vertex attributes {attrs}, which "
             "the full-screen shade (compact_shade=False) cannot interpolate: the raster "
@@ -243,18 +256,36 @@ def _check_config(config, pipeline):
         )
 
 
-def _rasterize(setup, config, spec=(), emit_idx=True, emit_z=True, emit_strips=0):
-    """Bin + raster one pass.  Returns (z, idx, varys, strips, overflowed)
-    cropped to (height, width) (strips to (height, width / emit_strips));
-    absent outputs are None."""
-    H, W = config.height, config.width
-    records, tris, starts, overflowed = bin_triangles(setup, config, spec)
+def _window(config, rows, y0):
+    """The config of rows [y0, y0 + rows) of the frame (the frame itself
+    when rows is None) and its first tile row."""
+    window = config if rows is None else dataclasses.replace(config, height=rows)
+    return window, y0 // config.tile_h
+
+
+def _rasterize(setup, config, backend="kernel", spec=(), emit_idx=True, emit_z=True,
+               emit_strips=0, rows=None, y0=0):
+    """Raster one pass over rows [y0, y0 + rows) of the frame (all of it by
+    default; a row shard of parallel.sharding otherwise, y0 a multiple of
+    tile_h on the kernel backend).  The kernel backend bins against that
+    window with its tile-row offset and launches the tile raster; the dense
+    backend resolves every triangle at every pixel.  Returns (z, idx, varys,
+    strips, overflowed) cropped to (rows, width) (strips to (rows, width /
+    emit_strips)); absent outputs are None (varys and strips always on the
+    dense backend)."""
+    window, row_off = _window(config, rows, y0)
+    H, W = window.height, window.width
+    if backend == "dense":
+        z, idx = rasterize_dense(setup, H, W, config.tri_block, y_offset=y0)
+        return (z if emit_z else None, idx if emit_idx else None, None, None,
+                torch.zeros((), dtype=torch.bool, device=z.device))
+    records, tris, starts, overflowed = bin_triangles(setup, window, spec, row_tile_offset=row_off)
     z, idx, varys, strips = raster_cuda.rasterize(
         records, tris, starts,
-        tile_h=config.tile_h, tile_w=config.tile_w,
-        tiles_y=config.tiles_y, tiles_x=config.tiles_x,
+        tile_h=window.tile_h, tile_w=window.tile_w,
+        tiles_y=window.tiles_y, tiles_x=window.tiles_x, row_tile_offset=row_off,
         spec=spec, emit_idx=emit_idx, emit_z=emit_z, emit_strips=emit_strips,
-        idx_dtype=_idx_dtype(setup, config),
+        idx_dtype=_idx_dtype(setup, window),
     )
     return (
         z[:H, :W] if z is not None else None,
@@ -285,14 +316,15 @@ def _strip_mask_len(config):
     return 0
 
 
-def _use_fused_raster(spec, config, setup, pspec, needs_z):
-    """The gate of the fused two-pass kernel (the JAX predicate): the
-    pipeline is two-pass, the shade compact, fuse_passes set, the camera z
-    not wanted, the index int32, and no planes spec (K2 has neither a
-    varying phase nor an int16 target).  The JAX gate's one-band condition
-    always holds here: the port has no row bands."""
+def _use_fused_raster(spec, config, backend, setup, pspec, needs_z):
+    """The gate of the fused two-pass kernel (the JAX predicate): the kernel
+    backend, a two-pass pipeline, the shade compact, fuse_passes set, the
+    camera z not wanted, the index int32, and no planes spec (K2 has
+    neither a varying phase nor an int16 target).  The JAX gate's one-band
+    condition always holds here: the port has no row bands."""
     return (
         spec.two_pass
+        and backend == "kernel"
         and config.compact_shade
         and config.fuse_passes
         and not needs_z
@@ -301,17 +333,19 @@ def _use_fused_raster(spec, config, setup, pspec, needs_z):
     )
 
 
-def _fused_raster(setup1, setup, config):
-    """Bin both passes (no varying lanes) and run the fused kernel.  Returns
-    (shadow_z, idx, ovf1, ovf2) cropped to (height, width), each pass's
-    coord_overflow folded in."""
-    H, W = config.height, config.width
-    r1, t1, s1, ovfb1 = bin_triangles(setup1, config)
-    r2, t2, s2, ovfb2 = bin_triangles(setup, config)
+def _fused_raster(setup1, setup, config, rows=None, y0=0):
+    """Bin both passes (no varying lanes) over rows [y0, y0 + rows) of the
+    frame (as _rasterize) and run the fused kernel.  Returns (shadow_z, idx,
+    ovf1, ovf2) cropped to (rows, width), each pass's coord_overflow folded
+    in."""
+    window, row_off = _window(config, rows, y0)
+    H, W = window.height, window.width
+    r1, t1, s1, ovfb1 = bin_triangles(setup1, window, row_tile_offset=row_off)
+    r2, t2, s2, ovfb2 = bin_triangles(setup, window, row_tile_offset=row_off)
     shadow_z, idx = raster_cuda.rasterize_fused(
         r1, t1, s1, r2, t2, s2,
-        tile_h=config.tile_h, tile_w=config.tile_w,
-        tiles_y=config.tiles_y, tiles_x=config.tiles_x,
+        tile_h=window.tile_h, tile_w=window.tile_w,
+        tiles_y=window.tiles_y, tiles_x=window.tiles_x, row_tile_offset=row_off,
     )
     return (
         shadow_z[:H, :W], idx[:H, :W],
@@ -319,9 +353,9 @@ def _fused_raster(setup1, setup, config):
     )
 
 
-def _pixel_coords(H, W, device):
+def _pixel_coords(H, W, device, y_offset=0):
     py, px = torch.meshgrid(
-        torch.arange(H, dtype=torch.int32, device=device),
+        torch.arange(y_offset, y_offset + H, dtype=torch.int32, device=device),
         torch.arange(W, dtype=torch.int32, device=device),
         indexing="ij",
     )
@@ -339,10 +373,11 @@ def _unpack_planes(spec, varys):
     return out
 
 
-def _fragments_from_planes(spec, varys, H, W):
-    """Fragment dict from the kernel's interpolated varying planes."""
+def _fragments_from_planes(spec, varys, H, W, y_offset=0):
+    """Fragment dict from the kernel's interpolated varying planes; y_offset
+    is the first global row of a row slab."""
     frag = _unpack_planes(spec, varys)
-    frag["x"], frag["y"] = _pixel_coords(H, W, varys.device)
+    frag["x"], frag["y"] = _pixel_coords(H, W, varys.device, y_offset)
     return frag
 
 
@@ -409,7 +444,7 @@ def _shadow_for_shade(shadow_z, spec, config):
 
 
 def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
-                  strip_mask=None, planes=None, planes_spec=()):
+                  y_offset=0, strip_mask=None, planes=None, planes_spec=()):
     """Strip-compacted shading: the shade runs only on covered
     config.strip_len-pixel strips.
 
@@ -418,6 +453,10 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     shaded in one batch; the per-fragment math is elementwise, so the
     pixels are identical.  Sizing that batch costs one host sync per frame
     (the covered-strip count).
+
+    idx may be a row slab of the frame (parallel.sharding): y_offset is the
+    slab's first global row, so the pixel coords the shade sees are global
+    while the strips and the writeback stay slab-local.
 
     strip_mask (config.strip_mask): the raster's (H, W/SL) per-strip max
     index, read instead of the full idx plane to find covered strips.
@@ -453,7 +492,7 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     lane = torch.arange(SL, device=dev)
     base = (ids[:, None] * SL + lane[None, :]).clamp(max=HW - 1)
     px = base % W
-    py = base // W
+    py = base // W + y_offset
     if planes is None:
         frag = _gather_fragments(setup, sidx, _GATHER_KEYS[pipeline], (px, py))
         varys = compute_varyings(frag, VARYING_SPECS[pipeline])
@@ -501,17 +540,103 @@ def prepack_textures(textures, pipeline, tile=0):
     return shaders.pack_textures(textures, shaders.PIPELINE_MAPS[pipeline], tile=tile)
 
 
+def _with_packed_plane(textures, pipeline, config):
+    """The textures with the pipeline's packed plane in config's layout
+    (packed here unless a prepack already holds it)."""
+    if _pk_needed(textures, pipeline, config.tex_tile):
+        return prepack_textures(textures, pipeline, tile=config.tex_tile)
+    return textures
+
+
+def _uniforms(spec, config, light_direction, look_from, look_at, up):
+    """(light-pass uniforms or None, camera-pass uniforms) of a pipeline:
+    the shadow pass 1 and 2 prepares of a two-pass pipeline (pass 2 also
+    carries the light's shadow_matrix), default_prepare otherwise."""
+    if not spec.two_pass:
+        return None, ml.default_prepare(config, light_direction, look_from, look_at, up)
+    u1 = ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
+    uniforms = ml.shadow_pass_2_prepare(config, light_direction, look_from, look_at, up)
+    uniforms["shadow_matrix"] = u1["shadow_matrix"]
+    return u1, uniforms
+
+
+def _shade_dense_path(setup, idx, pipeline, y_offset=0):
+    """Full-screen fragments by the attribute gather and compute_varyings:
+    the shade's input on the dense backend (JAX _shade_jnp_path)."""
+    H, W = idx.shape
+    px, py = _pixel_coords(H, W, idx.device, y_offset)
+    frag = _gather_fragments(setup, idx, _GATHER_KEYS[pipeline], (px, py))
+    varys = compute_varyings(frag, VARYING_SPECS[pipeline])
+    varys["x"], varys["y"] = px, py
+    return varys
+
+
+def _assemble_shade(setup, idx, pipeline, uniforms, textures, config, shadow_z,
+                    compact, kspec, varys=None, strips=None, y_offset=0):
+    """Texture pack, shadow relayout and shade of a rasterized frame, or of
+    the row slab whose first global row is y_offset: the strip-compacted
+    shade, or the full-screen shade of the kernel's varying planes (or of
+    the dense backend's gathered fragments).  shadow_z is the whole
+    row-major shadow map (ignored by one-pass pipelines).  Returns the
+    (rows, W, 3) u8 frame, uncovered pixels black."""
+    spec = PIPELINES[pipeline]
+    # The shade reads the shadow map through its own (possibly
+    # tile-swizzled) copy; callers see row-major.
+    shadow_shade = _shadow_for_shade(shadow_z, spec, config)
+    textures = _with_packed_plane(textures, pipeline, config)
+    if compact:
+        return _shade_strips(
+            setup, idx, pipeline, uniforms, textures, config, shadow_shade, y_offset=y_offset,
+            strip_mask=strips, planes=varys, planes_spec=kspec,
+        )
+    if varys is None:
+        frag = _shade_dense_path(setup, idx, pipeline, y_offset)
+    else:
+        frag = _fragments_from_planes(kspec, varys, idx.shape[0], idx.shape[1], y_offset)
+        _add_const_gather(frag, kspec, VARYING_SPECS[pipeline], setup, idx)
+    if spec.two_pass:
+        frag["shadow_buffer"] = shadow_shade
+    colors = spec.shade(frag, uniforms, textures, config)
+    return torch.where((idx >= 0)[..., None], colors, 0).to(torch.uint8)
+
+
+def _camera_pass_and_shade(setup, uniforms, pipeline, textures, config, backend, shadow_z,
+                           needs_z, rows=None, y0=0):
+    """The camera pass and the shade of rows [y0, y0 + rows) of the frame
+    (all of it by default), given the whole shadow map (None for one-pass
+    pipelines): the camera stage of render_frame and of each row shard of
+    parallel.sharding.  The kernel raster emits the index (and z when
+    wanted), plus the strip plane and/or the varying planes the shade
+    reads.  Returns (frame, z, overflow)."""
+    compact = backend == "kernel" and config.compact_shade
+    if compact:
+        kspec = _planes_spec(pipeline, textures, config) or ()
+    elif backend == "kernel":
+        kspec = kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
+    else:
+        kspec = VARYING_SPECS[pipeline]
+    z, idx, varys, strips, ovf = _rasterize(
+        setup, config, backend, spec=kspec, emit_z=needs_z,
+        emit_strips=_strip_mask_len(config) if compact else 0, rows=rows, y0=y0,
+    )
+    frame = _assemble_shade(setup, idx, pipeline, uniforms, textures, config, shadow_z,
+                            compact, kspec, varys=varys, strips=strips, y_offset=y0)
+    return frame, z, ovf | setup["coord_overflow"]
+
+
 def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
-                 pipeline, config, needs_z=True):
+                 pipeline, config, needs_z=True, backend="kernel"):
     """Render one frame.  Returns dict(frame u8 (H,W,3), z f32 (H,W) or None
     unless needs_z, shadow f32 (H,W), overflow 0-d bool).
 
     Row 0 is raster y=0 (the reference's frame_buffer before the
     presentation flip).  Inputs are tensors on one device; the frame is
-    computed there.
+    computed there.  backend: "kernel" (the binned tile raster, default) or
+    "dense" (BACKENDS; the full-screen gather shade, as the JAX package's
+    "jnp": config.compact_shade and the raster knobs do not apply).
     """
     config = config.resolve(pipeline)
-    _check_config(config, pipeline)
+    _check_config(config, pipeline, backend)
     spec = PIPELINES[pipeline]
     H, W = config.height, config.width
     dev = light_direction.device
@@ -524,58 +649,28 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
             "overflow": torch.zeros((), dtype=torch.bool, device=dev),
         }
 
-    compact = config.compact_shade
+    compact = backend == "kernel" and config.compact_shade
     pspec = _planes_spec(pipeline, textures, config) if compact else None
+    u1, uniforms = _uniforms(spec, config, light_direction, look_from, look_at, up)
     if spec.two_pass:
-        u1 = ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
         setup1 = triangle_setup(geom, u1, config, matrix_key="shadow_matrix", cull=False)
-        uniforms = ml.shadow_pass_2_prepare(config, light_direction, look_from, look_at, up)
-        uniforms["shadow_matrix"] = u1["shadow_matrix"]
-    else:
-        uniforms = ml.default_prepare(config, light_direction, look_from, look_at, up)
     setup = triangle_setup(geom, uniforms, config, needs=spec.needs)
 
-    if _use_fused_raster(spec, config, setup, pspec, needs_z):
+    if _use_fused_raster(spec, config, backend, setup, pspec, needs_z):
         shadow_z, idx, ovf1, ovf2 = _fused_raster(setup1, setup, config)
-        z, varys, strips, kspec = None, None, None, ()
+        frame = _assemble_shade(setup, idx, pipeline, uniforms, textures, config, shadow_z,
+                                compact, ())
+        z = None
     else:
-        # Light pass (two-pass pipelines): depth only.  Camera pass: index
-        # (and z when wanted), plus the strip plane and/or varying planes
-        # the shade reads.
+        # Light pass (two-pass pipelines): depth only.
         if spec.two_pass:
-            shadow_z, _, _, _, ovf1 = _rasterize(setup1, config, emit_idx=False)
+            shadow_z, _, _, _, ovf1 = _rasterize(setup1, config, backend, emit_idx=False)
             ovf1 = ovf1 | setup1["coord_overflow"]
         else:
             shadow_z = torch.full((H, W), ml.F32_MIN, dtype=torch.float32, device=dev)
             ovf1 = torch.zeros((), dtype=torch.bool, device=dev)
-        if compact:
-            kspec = pspec or ()
-        else:
-            kspec = kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
-        z, idx, varys, strips, ovf2 = _rasterize(
-            setup, config, spec=kspec, emit_z=needs_z,
-            emit_strips=_strip_mask_len(config) if compact else 0,
-        )
-        ovf2 = ovf2 | setup["coord_overflow"]
-
-    # The shade reads the shadow map through its own (possibly
-    # tile-swizzled) copy; callers see row-major.
-    shadow_shade = _shadow_for_shade(shadow_z, spec, config)
-    if _pk_needed(textures, pipeline, config.tex_tile):
-        textures = prepack_textures(textures, pipeline, tile=config.tex_tile)
-    if compact:
-        frame = _shade_strips(
-            setup, idx, pipeline, uniforms, textures, config, shadow_shade,
-            strip_mask=strips, planes=varys, planes_spec=kspec,
-        )
-    else:
-        # Full-screen shade of the kernel's varying planes.
-        frag = _fragments_from_planes(kspec, varys, H, W)
-        _add_const_gather(frag, kspec, VARYING_SPECS[pipeline], setup, idx)
-        if spec.two_pass:
-            frag["shadow_buffer"] = shadow_shade
-        colors = spec.shade(frag, uniforms, textures, config)
-        frame = torch.where((idx >= 0)[..., None], colors, 0).to(torch.uint8)
+        frame, z, ovf2 = _camera_pass_and_shade(setup, uniforms, pipeline, textures, config,
+                                                backend, shadow_z, needs_z)
     # overflow: a binning coverage cap was hit, or triangles beyond the
     # int32 exactness envelope were dropped.
     return {"frame": frame, "z": z, "shadow": shadow_z, "overflow": ovf1 | ovf2}
@@ -597,19 +692,26 @@ def _add_const_gather(frag, kspec, vspec, setup, idx):
         pos += comps
 
 
-def make_frame_fn(pipeline, config):
+def make_frame_fn(pipeline, config, backend="kernel"):
     """fn(geom, textures, light_direction, look_from, look_at, up) -> dict."""
-    return functools.partial(render_frame, pipeline=pipeline, config=config.resolve(pipeline))
+    return functools.partial(render_frame, pipeline=pipeline, config=config.resolve(pipeline),
+                             backend=backend)
+
+
+def frame_checksum(frame):
+    """The sum of a frame's bytes mod 2^32 (JAX render_burst's wrapping
+    uint32 sum), as a 0-d int64 tensor."""
+    return frame.sum(dtype=torch.int64) & 0xFFFFFFFF
 
 
 def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
-                 config, keep_frames=False):
+                 config, keep_frames=False, backend="kernel"):
     """Render an animation burst: one frame per (camera, light) orbit angle
     (src/app.rs:200-207), camera z-buffer not emitted.
 
     camera_angles/light_angles: (N,) f32 tensors on the render device.
-    Returns dict with per-frame int64 checksums and (N,) overflow flags
-    and, if keep_frames, the stacked (N, H, W, 3) frames.
+    Returns dict with per-frame checksums (frame_checksum) and (N,)
+    overflow flags and, if keep_frames, the stacked (N, H, W, 3) frames.
     """
     dev = camera_angles.device
     look_at = torch.zeros(3, dtype=torch.float32, device=dev)
@@ -621,9 +723,9 @@ def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
         light = torch.stack([torch.sin(la), zero, torch.cos(la)])
         out = render_frame(
             geom, textures, light, look_from, look_at, up,
-            pipeline=pipeline, config=config, needs_z=False,
+            pipeline=pipeline, config=config, needs_z=False, backend=backend,
         )
-        sums.append(out["frame"].sum(dtype=torch.int64))
+        sums.append(frame_checksum(out["frame"]))
         ovfs.append(out["overflow"])
         if keep_frames:
             frames.append(out["frame"])
@@ -633,9 +735,9 @@ def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
     return result
 
 
-def make_burst_fn(pipeline, config, keep_frames=False):
+def make_burst_fn(pipeline, config, keep_frames=False, backend="kernel"):
     """fn(geom, textures, camera_angles, light_angles) -> render_burst dict."""
     return functools.partial(
         render_burst, pipeline=pipeline, config=config.resolve(pipeline),
-        keep_frames=keep_frames,
+        keep_frames=keep_frames, backend=backend,
     )

@@ -83,7 +83,7 @@ def _prefix_fn(pipeline, config, stage):
             if setup1 is not None:
                 bin_triangles(setup1, config)
             return bin_triangles(setup, config, kspec)[0]
-        if _use_fused_raster(spec, config, setup, pspec, needs_z=False):
+        if _use_fused_raster(spec, config, "kernel", setup, pspec, needs_z=False):
             return _fused_raster(setup1, setup, config)[1]
         if setup1 is not None:
             _rasterize(setup1, config, emit_idx=False)

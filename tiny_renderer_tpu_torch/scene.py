@@ -101,6 +101,9 @@ class Scene:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    # The JAX Scene's name for it (tiny_renderer_tpu/scene.py).
+    block_until_ready = synchronize
+
     def render_sequence(self, camera_angles, light_angles) -> np.ndarray:
         """Render an orbit burst (src/app.rs:200-207) and return the frames as
         (N, H, W, 3) u8, presentation-flipped like get_frame_buffer."""
