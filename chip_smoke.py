@@ -381,14 +381,16 @@ def bound(passes, out_bytes, planes=(), covered=0):
     """(bound_ms, bound_by, flops, bytes) of a raster launch: phase 1 flops over the
     (pixel, candidate) pairs inside the candidates' bboxes, phase 2 flops per
     covered pixel, against the bytes of the record rows read (13 lanes, plus
-    the plane lanes), the id list, the tile offsets and the outputs."""
+    the plane lanes), the id list, the tile offsets and the outputs.  The
+    rows read are those the launch's CSR slice references: a band's, or a
+    pass's after the cull, not every row of the array."""
     from tiny_renderer_tpu_torch.ops.raster_cuda import PLANE_LANES
 
     ops, nbytes = 0, out_bytes
     for records, tris, starts, tests in passes:
         n_inc = int(starts[-1] - starts[0])
         ops += tests * OPS_PER_CANDIDATE
-        rows = records.shape[0] if tris is not None else n_inc
+        rows = torch.unique(tris[int(starts[0]):int(starts[-1])]).numel() if tris is not None else n_inc
         lanes = max([13] + [lane + PLANE_LANES[m] for m, lane, *_ in planes])
         nbytes += rows * lanes * 4 + starts.numel() * 4 + (n_inc * 4 if tris is not None else 0)
     for mode, _lane, _p, _w, _h, swz in planes:
@@ -950,6 +952,8 @@ def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16
     }
     px = k * th * cfg.padded_width
     k1_passes = [(*b[p], tests[p]) for _, b, tests in shard_bins for p in ("light", "camera")]
+    # K2 reads both passes' bins and writes the same two planes per band as
+    # the K1 pair: the same work, so the same bound.
     bounds = {"banded": bound(k1_passes, ROW_SHARDS * 2 * px * 4),
               "banded_fused": bound(k1_passes, ROW_SHARDS * 2 * px * 4)}
     phase("parallel", f"shadow frame at {W}x{H} (host clock + synchronize; best of 5, in turns single, "

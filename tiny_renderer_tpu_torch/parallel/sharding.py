@@ -41,8 +41,8 @@ from ..pipelines.frame import (
     _camera_pass_and_shade,
     _check_config,
     _fused_raster,
+    _light_pass,
     _planes_spec,
-    _rasterize,
     _uniforms,
     _use_fused_raster,
     _with_packed_plane,
@@ -216,14 +216,13 @@ def _render_rows(geom, textures, light_direction, look_from, look_at, up, *, pip
         if config.replicate_pass1:
             # The full-height light pass on every shard: no collective, n
             # times the pass-1 work, the same map as the all_gather.
-            shadow_full, _, _, _, ovf1 = _rasterize(setup1[d], config, backend, emit_idx=False)
+            shadow_full, ovf1 = _light_pass(setup1[d], config, backend)
             full.append(shadow_full)
             shadows.append(shadow_full[d * rows:(d + 1) * rows])
         else:
-            slab, _, _, _, ovf1 = _rasterize(setup1[d], config, backend, emit_idx=False,
-                                             rows=rows, y0=d * rows)
+            slab, ovf1 = _light_pass(setup1[d], config, backend, rows=rows, y0=d * rows)
             shadows.append(slab)
-        ovf1s.append(ovf1 | setup1[d]["coord_overflow"])
+        ovf1s.append(ovf1)
     if spec.two_pass and not config.replicate_pass1:
         full = [_all_gather(shadows, dev) for dev in devices]
     for d, x in enumerate(ins):
@@ -313,9 +312,10 @@ def render_sequence_pipelined(geom, textures, light_directions, look_froms, look
     (row-sharded over its "rows" group) while stage 1 runs the camera pass
     and shade of frame t-1 with the shadow map handed over at the end of
     step t-1.  B+1 steps; the gates t < B and t >= 1 skip the fill and
-    drain work.  The handoff is a pure permutation, and the slab raster and
-    shade are render_frame_sharded's, so every frame equals its
-    single-device render.
+    drain work.  The handoff (the map, its overflow flag and the light's
+    shadow_matrix, which the JAX function recomputes on stage 1) is a pure
+    permutation, and the slab raster and shade are render_frame_sharded's,
+    so every frame equals its single-device render.
 
     Only two-pass pipelines apply (ValueError otherwise); shard_triangles
     and replicate_pass1, pass-1 strategies that contradict the stage split,
@@ -349,7 +349,8 @@ def render_sequence_pipelined(geom, textures, light_directions, look_froms, look
     ins0 = [(_to(geom, dev), look_at.to(dev), up.to(dev)) for dev in stage0]
     ins1 = [(_to(geom, dev), _to(textures, dev), look_at.to(dev), up.to(dev)) for dev in stage1]
 
-    carry, carry_ovf = None, None  # frame t-1's map and pass-1 flag, on stage 1
+    # Frame t-1's map, pass-1 flag and light matrix, on stage 1.
+    carry, carry_ovf, carry_matrix = None, None, None
     frames, ovfs = [], []
     for t in range(B + 1):
         # Stage 1: camera pass + shade of frame t-1 with the carried map.
@@ -357,8 +358,9 @@ def render_sequence_pipelined(geom, textures, light_directions, look_froms, look
             slabs, flags = [], []
             for d, (g, tex, at, upv) in enumerate(ins1):
                 dev = stage1[d]
-                _, u = _uniforms(spec, config, light_directions[t - 1].to(dev),
-                                 look_froms[t - 1].to(dev), at, upv)
+                u = ml.shadow_pass_2_prepare(config, light_directions[t - 1].to(dev),
+                                             look_froms[t - 1].to(dev), at, upv)
+                u["shadow_matrix"] = carry_matrix[d]
                 setup = triangle_setup(g, u, config, needs=spec.needs)
                 frame, _, ovf2 = _camera_pass_and_shade(
                     setup, u, pipeline, tex, config, backend, carry[d], False, rows=rows,
@@ -370,16 +372,19 @@ def render_sequence_pipelined(geom, textures, light_directions, look_froms, look
             ovfs.append(_all_gather(flags, out_dev).any())
         # Stage 0: the light-view slabs of frame t, the all_gather within
         # its group, and the handoff to stage 1 shard by shard.
+        # The light matrix travels with the map, so stage 1 does not
+        # recompute the pass-1 uniforms.
         if t < B:
-            slabs, flags = [], []
+            slabs, flags, matrices = [], [], []
             for d, (g, at, upv) in enumerate(ins0):
                 light = light_directions[t].to(stage0[d])
                 u1 = ml.shadow_pass_1_prepare(config, light, at, upv)
                 setup1 = triangle_setup(g, u1, config, matrix_key="shadow_matrix", cull=False)
-                slab, _, _, _, ovf1 = _rasterize(setup1, config, backend, emit_idx=False,
-                                                 rows=rows, y0=d * rows)
+                slab, ovf1 = _light_pass(setup1, config, backend, rows=rows, y0=d * rows)
                 slabs.append(slab)
-                flags.append((ovf1 | setup1["coord_overflow"]).reshape(1))
+                flags.append(ovf1.reshape(1))
+                matrices.append(u1["shadow_matrix"])
             carry = [_all_gather(slabs, stage0[d]).to(stage1[d]) for d in range(n)]
             carry_ovf = [_all_gather(flags, stage0[d]).any().to(stage1[d]) for d in range(n)]
+            carry_matrix = [matrices[d].to(stage1[d]) for d in range(n)]
     return {"frame": torch.stack(frames), "overflow": torch.stack(ovfs)}

@@ -600,6 +600,15 @@ def _assemble_shade(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     return torch.where((idx >= 0)[..., None], colors, 0).to(torch.uint8)
 
 
+def _light_pass(setup1, config, backend, rows=None, y0=0):
+    """The light pass (depth only) of rows [y0, y0 + rows) of the frame (all
+    of it by default): the light stage of render_frame and of each row
+    shard of parallel.sharding.  Returns (shadow z, overflow), the overflow
+    including setup1's coord_overflow."""
+    z, _, _, _, ovf = _rasterize(setup1, config, backend, emit_idx=False, rows=rows, y0=y0)
+    return z, ovf | setup1["coord_overflow"]
+
+
 def _camera_pass_and_shade(setup, uniforms, pipeline, textures, config, backend, shadow_z,
                            needs_z, rows=None, y0=0):
     """The camera pass and the shade of rows [y0, y0 + rows) of the frame
@@ -613,8 +622,8 @@ def _camera_pass_and_shade(setup, uniforms, pipeline, textures, config, backend,
         kspec = _planes_spec(pipeline, textures, config) or ()
     elif backend == "kernel":
         kspec = kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
-    else:
-        kspec = VARYING_SPECS[pipeline]
+    else:  # the dense raster takes no plane spec; the shade gathers
+        kspec = ()
     z, idx, varys, strips, ovf = _rasterize(
         setup, config, backend, spec=kspec, emit_z=needs_z,
         emit_strips=_strip_mask_len(config) if compact else 0, rows=rows, y0=y0,
@@ -662,10 +671,8 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
                                 compact, ())
         z = None
     else:
-        # Light pass (two-pass pipelines): depth only.
         if spec.two_pass:
-            shadow_z, _, _, _, ovf1 = _rasterize(setup1, config, backend, emit_idx=False)
-            ovf1 = ovf1 | setup1["coord_overflow"]
+            shadow_z, ovf1 = _light_pass(setup1, config, backend)
         else:
             shadow_z = torch.full((H, W), ml.F32_MIN, dtype=torch.float32, device=dev)
             ovf1 = torch.zeros((), dtype=torch.bool, device=dev)
