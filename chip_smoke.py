@@ -116,7 +116,27 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              angle, /healthz ok.  Prints the stage breakdown of shadow and
              default (CUDA-event and host ms per stage), ms per served
              request and interactive ms per frame.
-10. profile — the CLI with --profile (torch.profiler): the trace's GPU
+10. capacity — the capacity scale.  The flagship stand-in written to a
+             temporary directory (model.obj and four 1024^2 TGAs, the
+             texture RLE-coded), loaded by load_model on the native path
+             (assets/native.py, g++-built; the NumPy parsers patched to
+             fail) and equal to the NumPy load, then subdivided twice by
+             subdivide_mesh: 81,536 triangles.  K1 z, idx and z+idx on
+             both passes (int32 index target) and on the 4 tile-row bands
+             of row_bands=4, bit-identical to the twins and to the full
+             frame's rows.  Phong and shadow at 800x800 through Scene.render
+             and a 2-frame burst under row_bands 0, 4 and 25 (shadow also
+             under fuse_passes with 0 and 4): the one-band render equal to
+             the twin raster, every banded render bit-identical to it, R
+             K1 launches per pass and no K2 under bands, no overflow.  The
+             flagship through Scene(backend="dense") and app.main --raster
+             dense: no kernel launch, coverage equal to the kernel frame's,
+             within the 0.5% tie budget, the PNG equal to the Scene's.
+             Times: K1 per frame at capacity and under row_bands=4 (paced,
+             twin, device) beside their bounds, each pass's device ms, and
+             the capacity frames (burst ms/frame and Scene.render latency)
+             in turns with the flagship's shadow frame.
+11. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
              profiler ran (last, so that no other measurement follows the
@@ -124,7 +144,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 
 Each phase prints its seconds.  Launch counts are set to 0 just before each
 path is driven and read just after (the kernels line's launches_by_pipeline
-includes the custom pipelines toon, fog and glow, and the sharded paths).  Prints a JSON line of kernel results
+includes the custom pipelines toon, fog and glow, the sharded paths and the
+capacity scene).  Prints a JSON line of kernel results
 (time paced by the host as "ms", device time as "device_ms", launches in
 all the paths driven and by pipeline, the pipelines whose paths launched
 it, error, and the bound: the larger of the work's fp32 operations over 67 TFLOP/s and its bytes
@@ -138,6 +159,7 @@ parameters.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -663,7 +685,7 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
 
 
 def profile_phase(dev, config, smi, shadow_scene):
-    """Phase 9: the CLI's --profile trace (torch.profiler), the device's busy
+    """Phase 11: the CLI's --profile trace (torch.profiler), the device's busy
     and idle share in it, and the shadow frame by the stage profile before
     and after the profiler ran in this process.  Last, so that no other
     measurement follows the profiler in the process."""
@@ -692,6 +714,359 @@ def profile_phase(dev, config, smi, shadow_scene):
           f"(24 frames, CUDA events | host ms per frame) {before['device']:.3f} | {before['host']:.3f} "
           f"before the profiler ran in this process, {after['device']:.3f} | {after['host']:.3f} "
           f"after  [{smi}]")
+
+
+MESH_FIELDS = ("positions", "tex_coords", "normals", "pos_idx", "tex_idx", "normal_idx")
+MAP_NAMES = ("texture", "normal_map", "normal_map_tangent", "specular_map")
+
+
+def write_obj(path, mesh):
+    """The mesh as OBJ text with PTN faces (1-based v/vt/vn); floats
+    written with 9 significant digits, so f32 values round-trip."""
+    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in mesh.positions.tolist()]
+    lines += [f"vt {u:.9g} {v:.9g}" for u, v in mesh.tex_coords.tolist()]
+    lines += [f"vn {x:.9g} {y:.9g} {z:.9g}" for x, y, z in mesh.normals.tolist()]
+    faces = np.stack([mesh.pos_idx, mesh.tex_idx, mesh.normal_idx], -1) + 1  # (T, 3 corners, 3)
+    lines += ["f " + " ".join("/".join(map(str, c)) for c in f) for f in faces.tolist()]
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+
+
+def write_tga(path, rgb, rle=False):
+    """A 24-bit bottom-left-origin TGA: raw (type 2), or RLE (type 10) with
+    one packet per 128 pixels, a run packet where they are all equal."""
+    h, w, _ = rgb.shape
+    data = np.ascontiguousarray(rgb[::-1, :, ::-1]).reshape(-1, 3)  # bottom row first, BGR
+    if rle:
+        check(len(data) % 128 == 0, "write_tga: RLE needs a multiple of 128 pixels")
+        chunks = data.reshape(-1, 128, 3)
+        run = (chunks == chunks[:, :1]).all(axis=(1, 2))
+        packets = [bytes([0xFF]) + c[0].tobytes() if r else bytes([0x7F]) + c.tobytes()
+                   for c, r in zip(chunks, run.tolist())]
+        body = b"".join(packets)
+    else:
+        body = data.tobytes()
+    header = bytes([0, 0, 10 if rle else 2]) + bytes(9) + w.to_bytes(2, "little") + h.to_bytes(2, "little") \
+        + bytes([24, 0])
+    with open(path, "wb") as fh:
+        fh.write(header + body)
+
+
+def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagship):
+    """Phase 10: the capacity scale.  The flagship stand-in is written to a
+    temporary directory (model.obj and four TGAs, the texture RLE-coded),
+    loaded by load_model on the native path and subdivided twice (81,536
+    triangles).  K1 idx-only, depth-only and z+idx at capacity (int32 index
+    target) and on the 4 bands of row_bands=4 against their twins; phong
+    and shadow at 800x800 through Scene and the burst under row_bands 0, 4
+    and 25 (and shadow under fuse_passes), each equal bit for bit to the
+    one-band frame with R K1 launches per pass and no K2 under bands; the
+    flagship through Scene(backend="dense") and --raster dense.  Times: K1
+    per frame at capacity and under row_bands=4 (paced, twin, device) with
+    their bounds, and the capacity frames (burst ms/frame, Scene.render
+    latency) in turns with the flagship's.  Returns (ms, bounds) of the two
+    new kernel rows."""
+    from tiny_renderer_tpu_torch import Scene, app
+    from tiny_renderer_tpu_torch.assets import model as model_mod
+    from tiny_renderer_tpu_torch.assets import native
+    from tiny_renderer_tpu_torch.assets.mesh_tools import subdivide_mesh
+    from tiny_renderer_tpu_torch.ops import raster_cuda
+    from tiny_renderer_tpu_torch.ops.binning import bin_triangles
+    from tiny_renderer_tpu_torch.ops.mathlib import F32_MIN
+    from tiny_renderer_tpu_torch.pipelines.frame import _band_plan, _idx_dtype, make_burst_fn
+    from tiny_renderer_tpu_torch.utils.png import png_bytes
+
+    t0 = time.perf_counter()
+    cfg = base.resolve("shadow")
+    W, H = cfg.width, cfg.height
+
+    # -- (a) the native loader, and the capacity scene --
+    try:
+        lib, build_s = native.build(force=True)
+    except (OSError, RuntimeError) as e:
+        raise AssertionError(f"the native asset loader does not build: {e}") from e
+    check(native.native_available(), "native_available() is False after a successful build")
+    with tempfile.TemporaryDirectory() as tmp:
+        write_obj(f"{tmp}/model.obj", model.mesh)
+        for name in MAP_NAMES:
+            write_tga(f"{tmp}/{name}.tga", getattr(model, name), rle=name == "texture")
+        fail = mock.Mock(side_effect=AssertionError("load_model ran a NumPy parser"))
+        tl = time.perf_counter()
+        with mock.patch.object(model_mod, "read_obj", fail), mock.patch.object(model_mod, "read_tga", fail):
+            loaded = model_mod.load_model(tmp, verbose=False)
+        native_s = time.perf_counter() - tl
+        tl = time.perf_counter()
+        with mock.patch.object(native, "read_obj_native", return_value=None), \
+                mock.patch.object(native, "read_tga_native", return_value=None):
+            ref = model_mod.load_model(tmp, verbose=False)
+        numpy_s = time.perf_counter() - tl
+    for f in MESH_FIELDS:
+        a, b, c = getattr(loaded.mesh, f), getattr(ref.mesh, f), getattr(model.mesh, f)
+        check(a.dtype == b.dtype == c.dtype and np.array_equal(a, b) and np.array_equal(a, c),
+              f"native load: mesh {f} differs from the NumPy load or the written mesh")
+    for name in MAP_NAMES:
+        check(np.array_equal(getattr(loaded, name), getattr(ref, name))
+              and np.array_equal(getattr(loaded, name), getattr(model, name)),
+              f"native load: {name} differs from the NumPy load or the written map")
+    mesh = subdivide_mesh(loaded.mesh, 2)
+    check(mesh.num_triangles == 16 * model.num_triangles, f"capacity mesh {mesh.num_triangles}")
+    big = dataclasses.replace(loaded, mesh=mesh)
+    phase("capacity", f"native loader: g++ {' '.join(native.CXX_FLAGS)} -> {lib.name} in {build_s:.3f} s; "
+          f"load_model took the native path (the NumPy parsers patched to fail) in {native_s:.3f} s, the NumPy "
+          f"path {numpy_s:.3f} s, bytes and dtypes equal, equal to the written scene (model.obj of "
+          f"{model.num_triangles} triangles, four 1024^2 TGAs, texture RLE); subdivide_mesh(levels=2): "
+          f"{mesh.num_triangles} triangles  [{time.perf_counter() - t0:.1f} s]")
+
+    # -- (b) K1 at capacity and on the bands of row_bands=4, against the twins --
+    t1 = time.perf_counter()
+    geom_np = {f: getattr(mesh, f) for f in MESH_FIELDS}
+    cap = passes(geom_np)
+    setups = cap["setup"]
+    check(_idx_dtype(setups["camera"], dataclasses.replace(cfg, idx_int16=True, tile_h=16)) == "int32",
+          "capacity: idx_int16 must fall back to the int32 target at T >= 32768")
+    n_cmp = 0
+    full = {}
+    for pname in ("light", "camera"):
+        for mode, kw in MODES.items():
+            got = raster_cuda.rasterize(*cap[pname], **grid, **kw)
+            torch.cuda.synchronize()
+            compare("capacity", f"capacity/{pname}/{mode}", got,
+                    raster_cuda.rasterize_reference(*cap[pname], **grid, **kw))
+            check(got[1] is None or got[1].dtype == torch.int32, "capacity: idx not int32")
+            full[pname, mode] = got
+            n_cmp += 1
+    cfg4 = dataclasses.replace(cfg, row_bands=4)
+    plan4 = _band_plan(setups["camera"], cfg4)
+    check(sum(bt for _, bt, _ in plan4) == cfg.tiles_y and len(plan4) == min(4, cfg.tiles_y),
+          f"row_bands=4 plan {plan4}")
+    bands = {}
+    for pname, mode in (("light", "z"), ("camera", "idx"), ("camera", "z+idx")):
+        kw = MODES[mode]
+        for t, bt, band in plan4:
+            b = bin_triangles(setups[pname], band, row_tile_offset=t)
+            check(not bool(b[3]), f"capacity band {t}: overflow")
+            bg = {**grid, "tiles_y": bt}
+            got = raster_cuda.rasterize(*b[:3], **bg, row_tile_offset=t, **kw)
+            torch.cuda.synchronize()
+            label = f"capacity/{pname}/{mode}@row tile {t}"
+            compare("capacity_banded", label, got,
+                    raster_cuda.rasterize_reference(*b[:3], **bg, row_tile_offset=t, **kw))
+            r = slice(t * cfg.tile_h, (t + bt) * cfg.tile_h)
+            compare("capacity_banded", label + " vs the full frame", got,
+                    [None if x is None else x[r] for x in full[pname, mode]])
+            bands[pname, t] = (b[:3], bg)
+            n_cmp += 2
+    n_inc = {p: int(cap[p][2][-1]) for p in ("light", "camera")}
+    per_tile = {p: torch.diff(cap[p][2]).reshape(cfg.tiles_y, cfg.tiles_x) for p in n_inc}
+    # (incidences, cap) of the fullest band of each band count, over both passes.
+    fullest = {rb: max((int(per_tile[p][t:t + bt].sum()), band.max_incidences) for p in per_tile
+                       for t, bt, band in _band_plan(setups[p], dataclasses.replace(cfg, row_bands=rb)))
+               for rb in (4, 25)}
+    phase("capacity", f"{n_cmp} kernel/twin comparisons at {mesh.num_triangles} triangles bit-identical "
+          f"(tolerance: exact): K1 z, idx, z+idx on both passes ({n_inc['light']} light and {n_inc['camera']} "
+          f"camera incidences, at most {max(int(v.max()) for v in per_tile.values())} per tile, cap "
+          f"{cfg.max_incidences or 'max(4T, 4096)'}; int32 index target), and on the {len(plan4)} bands of "
+          f"row_bands=4 at row tile offsets {[t for t, _, _ in plan4]}, each also equal to the full frame's "
+          "rows; the fullest band holds " + ", ".join(f"{n} incidences against its cap of {c} (row_bands={rb})"
+                                                     for rb, (n, c) in fullest.items())
+          + f"  [{time.perf_counter() - t1:.1f} s]")
+
+    # -- (c) phong and shadow through Scene and the burst, with and without bands --
+    t2 = time.perf_counter()
+    cams = torch.tensor([0.37, 0.42], dtype=torch.float32, device=dev)
+    ligs = torch.tensor([-0.6, -0.57], dtype=torch.float32, device=dev)
+    twin = (mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference),
+            mock.patch.object(raster_cuda, "rasterize_fused", raster_cuda.rasterize_fused_reference))
+    runs = {}
+    for pipeline in ("phong", "shadow"):
+        n_pass = 2 if pipeline == "shadow" else 1
+        one = None
+        for rb, knobs in ((0, {}), (4, {}), (25, {}), (0, dict(fuse_passes=True)),
+                          (4, dict(fuse_passes=True))):
+            if knobs and pipeline != "shadow":
+                continue
+            sc = Scene(big, pipeline, dataclasses.replace(base, row_bands=rb, **knobs), device=dev)
+            sc.set_light_direction(VIEW[0])
+            sc.set_camera(*VIEW[1:])
+            R = len(_band_plan(setups["camera"], sc.config))
+            burst = make_burst_fn(pipeline, sc.config, keep_frames=True)
+            raster_cuda.reset_launches()
+            r = sc.render()
+            torch.cuda.synchronize()
+            got_render = dict(raster_cuda.LAUNCHES)
+            raster_cuda.reset_launches()
+            bo = burst(sc._geom, sc._textures, cams, ligs)
+            torch.cuda.synchronize()
+            got_burst = dict(raster_cuda.LAUNCHES)
+            label = f"{pipeline} row_bands={rb}" + (" fuse_passes" if knobs else "")
+            want = {"raster": n_pass * R, "offset": n_pass * (R - 1)}
+            check(got_render == {m: want.get(m, 0) for m in got_render},
+                  f"capacity {label}: Scene.render launches {got_render}, expected {want}")
+            want = {"fused": 2} if knobs and R == 1 else {m: 2 * v for m, v in want.items()}
+            check(got_burst == {m: want.get(m, 0) for m in got_burst},
+                  f"capacity {label}: burst launches {got_burst}, expected {want}")
+            path = f"{pipeline}, capacity"
+            for counts in (got_render, got_burst):
+                record(path, counts)
+                record(path, {"capacity_bands" if R > 1 else "capacity": counts["raster"]})
+            check(not bool(r["overflow"]) and not bool(bo["overflow"].any()), f"capacity {label}: overflow")
+            check(bool((bo["frames"] > 0).any(-1).flatten(1).float().mean(1).gt(0).all()),
+                  f"capacity {label}: a black frame")
+            check(bool(torch.isfinite(r["z"][r["z"] > F32_MIN]).all()), f"capacity {label}: non-finite z")
+            if one is None:
+                one = (r, bo)
+                with twin[0], twin[1]:
+                    tr = sc.render()
+                for k in ("frame", "z", "shadow"):
+                    check(torch.equal(tr[k], r[k]), f"capacity {label}: Scene.render {k} differs from the twin")
+            else:
+                for k in ("frame", "z", "shadow", "overflow"):
+                    check(torch.equal(r[k], one[0][k]), f"capacity {label}: Scene.render {k} differs "
+                          "from the one-band frame")
+                check(torch.equal(bo["frames"], one[1]["frames"]), f"capacity {label}: burst differs from "
+                      "the one-band burst")
+            runs[label] = (sc, burst)
+            phase("capacity", f"{label} at {W}x{H}, {mesh.num_triangles} triangles: Scene.render launches "
+                  f"{ {m: v for m, v in got_render.items() if v} }, 2-frame burst "
+                  f"{ {m: v for m, v in got_burst.items() if v} }; "
+                  + ("equal to the twin raster" if one[0] is r else "frame, z, shadow, overflow and burst "
+                     "bit-identical to the one-band render"))
+    phase("capacity", f"scenes took {time.perf_counter() - t2:.1f} s")
+
+    # -- (d) the dense backend through Scene and --raster dense --
+    t3 = time.perf_counter()
+    dsc = Scene(model, "shadow", base, device=dev, backend="dense")
+    dsc.set_light_direction(VIEW[0])
+    dsc.set_camera(*VIEW[1:])
+    raster_cuda.reset_launches()
+    d = dsc.render()
+    torch.cuda.synchronize()
+    check(not any(raster_cuda.LAUNCHES.values()), f"Scene(backend='dense') launched {raster_cuda.LAUNCHES}")
+    flagship.set_light_direction(VIEW[0])
+    flagship.set_camera(*VIEW[1:])
+    k = flagship.render()
+    for key in ("z", "shadow"):
+        check(torch.equal(d[key] > F32_MIN, k[key] > F32_MIN), f"dense Scene: {key} coverage differs")
+    fdiff = float((d["frame"] != k["frame"]).any(-1).float().mean())
+    check(fdiff < 0.005, f"dense Scene frame differs from the kernel frame on {fdiff:.4%} of pixels")
+    with tempfile.TemporaryDirectory() as tmp:
+        raster_cuda.reset_launches()
+        rc = app.main(["--size", str(W), str(H), "--backend", dev.type, "-s", "shadow", "--frames", "1",
+                       "--raster", "dense", "--no-fps", "--save", f"{tmp}/dense.png"])
+        torch.cuda.synchronize()
+        check(rc == 0 and not any(raster_cuda.LAUNCHES.values()),
+              f"app.main --raster dense: rc {rc}, launches {raster_cuda.LAUNCHES}")
+        with open(f"{tmp}/dense.png", "rb") as fh:
+            cli_png = fh.read()
+    pose = app._angles_to_vectors(0.0, 0.0)
+    for sc in (dsc, flagship):
+        sc.set_camera(*pose[:3])
+        sc.set_light_direction(pose[3])
+        sc.render()
+    check(cli_png == png_bytes(dsc.get_frame_buffer()), "--raster dense PNG differs from Scene(backend='dense')")
+    cdiff = float((dsc.get_frame_buffer() != flagship.get_frame_buffer()).any(-1).mean())
+    check(cdiff < 0.005, f"--raster dense frame differs from the kernel frame on {cdiff:.4%} of pixels")
+    check(np.array_equal(dsc.get_z_buffer() > 0, flagship.get_z_buffer() > 0), "--raster dense: z coverage")
+    phase("capacity", f"dense backend on the flagship: Scene(backend='dense') at {W}x{H}, 0 kernel launches, "
+          f"coverage equal to the kernel's (z and shadow), frame {fdiff:.6%} of pixels apart (budget 0.5%); "
+          f"app.main --raster dense PNG equal to Scene(backend='dense'), {cdiff:.6%} apart from the kernel "
+          f"frame  [{time.perf_counter() - t3:.1f} s]")
+
+    # -- (e) times --
+    t4 = time.perf_counter()
+    work = {p: block_work(setups[p], cap[p], grid)["bbox"].reshape(cfg.num_tiles, -1).sum(1)
+            for p in ("light", "camera")}
+    tests = {p: int(w.sum()) for p, w in work.items()}
+
+    def k1_frame(fn):
+        def run():
+            fn(*cap["light"], **grid, emit_idx=False)
+            fn(*cap["camera"], **grid, emit_z=False)
+        return run
+
+    def k1_bands(fn):
+        def run():
+            for t, _, _ in plan4:
+                fn(*bands["light", t][0], **bands["light", t][1], row_tile_offset=t, emit_idx=False)
+            for t, _, _ in plan4:
+                fn(*bands["camera", t][0], **bands["camera", t][1], row_tile_offset=t, emit_z=False)
+        return run
+
+    ms = {
+        "capacity": (time_launches(k1_frame(raster_cuda.rasterize), 40),
+                     time_launches(k1_frame(raster_cuda.rasterize_reference), 2),
+                     time_launches(k1_frame(raster_cuda.rasterize), 40, hold=True)),
+        "capacity_banded": (time_launches(k1_bands(raster_cuda.rasterize), 40),
+                            time_launches(k1_bands(raster_cuda.rasterize_reference), 2),
+                            time_launches(k1_bands(raster_cuda.rasterize), 40, hold=True)),
+    }
+    per_pass = {(p, m): time_launches(lambda p=p, kw=MODES[m]: raster_cuda.rasterize(*cap[p], **grid, **kw), 100,
+                                      hold=True)
+                for p, m in (("light", "z"), ("camera", "idx"))}
+    # The same two passes in the 25 one-tile-row bands of row_bands=25.
+    plan25 = _band_plan(setups["camera"], dataclasses.replace(cfg, row_bands=25))
+    b25 = [(p, t, bin_triangles(setups[p], band, row_tile_offset=t)[:3], {**grid, "tiles_y": bt})
+           for p in ("light", "camera") for t, bt, band in plan25]
+
+    def k1_bands25():
+        for p, t, b, bg in b25:
+            raster_cuda.rasterize(*b, **bg, row_tile_offset=t, **(dict(emit_idx=False) if p == "light"
+                                                                   else dict(emit_z=False)))
+
+    ms25 = time_launches(k1_bands25, 20, hold=True)
+    px = cfg.padded_height * cfg.padded_width
+    tx = cfg.tiles_x
+    band_passes = [(*bands[p, t][0], int(work[p][t * tx:(t + bt) * tx].sum()))
+                   for p in ("light", "camera") for t, bt, _ in plan4]
+    bounds = {"capacity": bound([(*cap["light"], tests["light"]), (*cap["camera"], tests["camera"])], 2 * px * 4),
+              "capacity_banded": bound(band_passes, 2 * px * 4)}
+    pass_bounds = {"light": bound([(*cap["light"], tests["light"])], px * 4),
+                   "camera": bound([(*cap["camera"], tests["camera"])], px * 4)}
+    for key, label in (("capacity", "K1 at capacity, light pass depth-only + camera pass idx-only (2 launches)"),
+                       ("capacity_banded", f"K1 under row_bands=4, the {2 * len(plan4)} banded launches of the "
+                                           "same two passes")):
+        paced, twin_ms, dms = ms[key]
+        phase("capacity", f"{label}: {paced:.4f} ms paced by the host, {dms:.4f} ms on the device with the "
+              f"launch queue held full, twin {twin_ms:.4f} ms; bound {bounds[key][0]:.6f} ms by "
+              f"{bounds[key][1]} ({bounds[key][2]} flops, {bounds[key][3]} bytes; {bounds[key][0] / dms:.2%} "
+              f"of it)  [{smi}]")
+    phase("capacity", "per launch at capacity (device, queue held full): " + ", ".join(
+        f"{p} pass {m} {per_pass[p, m]:.4f} ms (bound {pass_bounds[p][0]:.6f} ms by {pass_bounds[p][1]}, "
+        f"{pass_bounds[p][0] / per_pass[p, m]:.2%})" for p, m in per_pass)
+        + f"; {tests['light']} light and {tests['camera']} camera bbox pixel tests; the two passes in the "
+        f"{len(b25)} launches of row_bands=25: {ms25:.4f} ms on the device  [{smi}]")
+
+    # The frames in turns with the flagship's shadow frame: burst ms/frame
+    # (best of 2 bursts of 4 frames) and Scene.render latency (best of 3),
+    # each after a garbage collection.
+    cams4 = torch.tensor(0.37 + 0.05 * np.arange(4), dtype=torch.float32, device=dev)
+    ligs4 = torch.tensor(-0.6 + 0.03 * np.arange(4), dtype=torch.float32, device=dev)
+    order = {"flagship shadow": (flagship, make_burst_fn("shadow", flagship.config)), **runs}
+
+    def frame_times(sc, fn):
+        best = float("inf")
+        gc.collect()
+        for _ in range(2):
+            torch.cuda.synchronize()
+            tb = time.perf_counter()
+            fn(sc._geom, sc._textures, cams4, ligs4)
+            torch.cuda.synchronize()
+            best = min(best, (time.perf_counter() - tb) * 1e3 / 4)
+        gc.collect()
+        return best, host_ms(sc.render, 3)
+
+    for sc, fn in order.values():  # warm-up
+        fn(sc._geom, sc._textures, cams4[:1], ligs4[:1])
+    times = {k: [float("inf"), float("inf")] for k in order}
+    for rnd in range(3):
+        for key in (list(order) if rnd % 2 == 0 else list(order)[::-1]):
+            b, r = frame_times(*order[key])
+            times[key] = [min(times[key][0], b), min(times[key][1], r)]
+    phase("capacity", f"frames at {W}x{H} (host clock + synchronize; burst ms/frame best of 3x2 bursts of 4 "
+          "frames, Scene.render ms best of 3x3; in turns forward, backward, forward): " + ", ".join(
+              f"{k} {b:.3f} / {r:.3f}" for k, (b, r) in times.items()) + f"  [{smi}]")
+    phase("capacity", f"times took {time.perf_counter() - t4:.1f} s")
+    return ms, bounds
 
 
 def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16):
@@ -1104,7 +1479,7 @@ def main() -> int:
     allon_spec = kernel_varying_spec("shadow", tex, tile=allon_cfg.tex_tile)
     allon_cam = dict(emit_z=False, spec=allon_spec, emit_strips=allon_cfg.strip_len, idx_dtype="int16")
     err = {k: 0.0 for k in ("depth", "gathered", "int16", "strips", "planes", "fused", "banded",
-                            "banded_fused")}
+                            "banded_fused", "capacity", "capacity_banded")}
     n_cmp, covered, n_masks = 0, {}, 0
 
     def compare(kind_, label, got, want):
@@ -1194,7 +1569,9 @@ def main() -> int:
     geom, textures = scene._geom, scene._textures
 
     # Launches by kernel mode and pipeline, over every path driven below.
-    mode_paths = {k: {} for k in raster_cuda.LAUNCHES}
+    # "capacity"/"capacity_bands": K1 launches of the capacity scene's one-band
+    # and banded renders (capacity phase).
+    mode_paths = {k: {} for k in (*raster_cuda.LAUNCHES, "capacity", "capacity_bands")}
 
     def record(path, got):
         for k, n in got.items():
@@ -1516,7 +1893,11 @@ def main() -> int:
                 pipe_runs["default"][1])
     lap("entry")
 
-    # -- 10. profile ----------------------------------------------------------
+    # -- 10. capacity ---------------------------------------------------------
+    cap_ms, cap_bounds = capacity_phase(dev, model, RenderConfig(), smi, record, passes, compare, grid, scene)
+    lap("capacity")
+
+    # -- 11. profile ----------------------------------------------------------
     profile_phase(dev, RenderConfig(), smi, scene)
     lap("profile")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
@@ -1539,8 +1920,15 @@ def main() -> int:
         (f"raster_fused at a row offset (K2 row_tile_offset > 0 on the row shards under fuse_passes, ms "
          f"per frame of {ROW_SHARDS} shards)", f"{rp}:480", "banded_fused", "fused_offset",
          par_ms["banded_fused"]),
+        ("raster_depth at capacity (K1 at 81,536 triangles, int32 index target: light pass depth-only + "
+         "camera pass idx-only, ms per frame)", f"{rp}:167", "capacity", "capacity", cap_ms["capacity"]),
+        ("raster_depth under row_bands=4 (K1 at the row offsets of the capacity frame's tile-row bands; "
+         "launches: every banded render, row_bands 4 and 25; times: the 4 light + 4 camera launches of "
+         "row_bands=4, ms per frame)", f"{rp}:155", "capacity_banded", "capacity_bands",
+         cap_ms["capacity_banded"]),
     ]
     bounds.update(par_bounds)
+    bounds.update(cap_bounds)
 
     def by_pipeline(mode):
         return dict(mode_paths[mode])

@@ -140,14 +140,6 @@ def test_burst_matches_per_frame():
         assert bool(out["overflow"][i]) == bool(one["overflow"])
 
 
-@pytest.mark.parametrize("knob", [pytest.param(dict(row_bands=2), id="row_bands")])
-def test_unported_config_raises(knob):
-    g, t = scene_arrays(GEOM, TEX, "cpu")
-    with pytest.raises(NotImplementedError):
-        tframe.render_frame(g, t, *(to_tensor(v, "cpu") for v in VIEW), pipeline="shadow",
-                            config=config_from(RenderConfig(width=256, height=128, **knob)))
-
-
 def _tga(path, rgb):
     """Uncompressed 24-bit TGA, bottom-left origin."""
     h, w, _ = rgb.shape

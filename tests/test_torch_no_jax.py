@@ -48,6 +48,20 @@ _SCRIPT = textwrap.dedent("""
     sharded = render_frame_sharded(g, t, *view, pipeline="shadow", config=cfg,
                                    mesh=make_row_mesh([torch.device("cpu")] * 8))
     assert (sharded["frame"] > 0).any() and not bool(sharded["overflow"])
+    # The native asset loader, mesh subdivision, row bands, the dense backend
+    # through Scene.
+    from tiny_renderer_tpu_torch.assets import mesh_tools, native
+    assert native.native_available()
+    big = mesh_tools.subdivide_mesh(model.mesh, 1)
+    assert big.num_triangles == 4 * model.num_triangles
+    banded = trt.Scene(trt.Model(mesh=big, **make_textures(16)), "shadow",
+                       trt.RenderConfig(width=128, height=64, tile_h=8, row_bands=3), device="cpu")
+    banded.set_light_direction([0.3, 0.0, 0.95])
+    assert (banded.get_frame_buffer() > 0).any()
+    dense = trt.Scene(model, "phong", trt.RenderConfig(width=64, height=32), device="cpu",
+                      backend="dense")
+    dense.set_light_direction([0.3, 0.0, 0.95])
+    assert (dense.get_frame_buffer() > 0).any()
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tiny_renderer_tpu."))]
     assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
     print("OK", trt.PIPELINE_NAMES)

@@ -12,11 +12,15 @@ tile binning, the tile raster as hand-written CUDA kernels
 strip-compacted and full-screen shades — and the entry points around them:
 ``register_pipeline`` for custom shaders, Scene, the CLI
 (``python -m tiny_renderer_tpu_torch``) with its interactive window and
-per-stage profile, the dense raster backend (``backend="dense"``), the
-scale-out paths of ``parallel`` (row shards, frame batches, the two passes
-pipelined over a mesh of devices, run from one process), and the examples
-(``examples.custom_pipeline``, ``examples.serve_http``,
-``examples.sharded_render``).  Tensor conventions at the public functions are
+per-stage profile, the dense raster backend (``backend="dense"`` of
+render_frame and ``Scene``, ``--raster dense`` of the CLI and the frame
+server), explicit row bands (``RenderConfig(row_bands=N)``, ``--knob
+row_bands=N``), the native C++ asset loader (``assets.native``, built with
+g++ at first use into ``_build/``), mesh subdivision
+(``assets.mesh_tools``), the scale-out paths of ``parallel`` (row shards,
+frame batches, the two passes pipelined over a mesh of devices, run from
+one process), and the examples (``examples.custom_pipeline``,
+``examples.serve_http``, ``examples.sharded_render``).  Tensor conventions at the public functions are
 the JAX package's (dict keys, shapes, dtypes), so ``convert`` carries its
 state across unchanged.
 """

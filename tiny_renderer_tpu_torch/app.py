@@ -18,7 +18,10 @@ matplotlib) when a display exists, else falls back to headless.
 ``-s`` takes the seven built-in pipelines and any registered with
 ``register_pipeline`` before ``build_arg_parser``.  ``--backend cuda`` (the
 default) renders on the GPU through the CUDA raster kernel; ``--backend
-cpu`` on the CPU through its plain torch twin.  Without ``-p`` the app
+cpu`` on the CPU through its plain torch twin.  ``--raster dense`` (the
+JAX app's ``--backend jnp``) replaces the binned tile raster with the dense
+one, every triangle at every pixel, on either device; ``--knob
+row_bands=N`` rasters in N tile-row bands.  Without ``-p`` the app
 loads ``assets/diablo`` when that directory exists, else a procedural
 stand-in of the same size (flagship_model).
 """
@@ -38,7 +41,7 @@ import torch
 from .assets.model import Model, load_model
 from .config import RenderConfig
 from .models.procedural import make_textures, make_uv_sphere
-from .pipelines.frame import PIPELINES
+from .pipelines.frame import BACKENDS, PIPELINES
 from .scene import Scene
 from .utils.png import downsample_box, write_png
 from .utils.timing import FpsCounter, profile_trace
@@ -91,8 +94,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
     ap.add_argument("--dump-z", metavar="PNG", help="write the z-buffer debug view")
     ap.add_argument("--dump-shadow", metavar="PNG", help="write the shadow-buffer debug view")
     ap.add_argument("--backend", default="cuda", choices=("cuda", "cpu"),
-                    help="cuda: the CUDA raster kernel on the GPU (default); "
-                         "cpu: its plain torch twin on the CPU")
+                    help="the device: cuda, the CUDA raster kernel on the GPU "
+                         "(default); cpu, its plain torch twin on the CPU")
+    ap.add_argument("--raster", default="kernel", choices=BACKENDS,
+                    help="the raster backend (the JAX app's --backend): kernel, "
+                         "the binned tile raster (default); dense, every "
+                         "triangle at every pixel (the JAX package's jnp), "
+                         "on --backend's device")
     ap.add_argument("--depth", type=float, default=255.0,
                     help="z-buffer depth range (reference: 255, shader.rs:214)")
     ap.add_argument("--projection-distance", type=float, default=5.0,
@@ -417,7 +425,7 @@ def main(argv=None) -> int:
     if ssaa > 1:
         # Scaled after the knobs, so --knob width/height compose with --ssaa.
         config = dataclasses.replace(config, width=config.width * ssaa, height=config.height * ssaa)
-    scene = Scene(model, args.pipeline, config, device=args.backend)
+    scene = Scene(model, args.pipeline, config, device=args.backend, backend=args.raster)
 
     with profile_trace(args.profile):
         if args.save_seq:

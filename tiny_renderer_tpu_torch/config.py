@@ -3,9 +3,9 @@
 The same frozen dataclass as ``tiny_renderer_tpu.config``: identical field
 names, defaults and validation, so one config object (or its
 ``dataclasses.asdict``, see ``convert.config_from``) drives both packages in
-the parity tests.  The port's frame path honours every raster knob below
-except ``row_bands > 1`` (TPU on-chip memory banding), which it rejects
-rather than silently ignoring.
+the parity tests.  The port's frame path honours every raster knob below;
+``row_bands=0`` (the JAX package's automatic band plan, sized to TPU
+on-chip memory) renders one band.
 """
 
 from __future__ import annotations
@@ -82,8 +82,11 @@ class RenderConfig:
 
     # Scale-out knobs of parallel.sharding: the vertex stage sharded over
     # the triangle axis, and the full-height light pass on every row shard
-    # instead of the gathered shadow map.  row_bands (the TPU's on-chip
-    # memory banding) is not ported: > 1 raises.
+    # instead of the gathered shadow map.  row_bands N >= 1: the
+    # single-device kernel raster bins and launches in min(N, tiles_y)
+    # disjoint tile-row bands, each with its share of the incidence cap
+    # (pipelines.frame._band_plan); 0 is one band (the JAX package's
+    # automatic plan for 0 sizes bands to TPU on-chip memory, not ported).
     shard_triangles: bool = False
     row_bands: int = 0
     replicate_pass1: bool = False

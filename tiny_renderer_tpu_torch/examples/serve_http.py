@@ -9,8 +9,11 @@ pipeline is built lazily and reused; a lock serializes the device work
 (one renderer process per GPU).  The overflow flag is surfaced in
 /healthz.
 
-Run:  python -m tiny_renderer_tpu_torch.examples.serve_http [asset_dir] [port] [--size N] [--backend cuda|cpu]
-      (without asset_dir, the procedural stand-in of the flagship model)
+Run:  python -m tiny_renderer_tpu_torch.examples.serve_http [asset_dir] [port] [--size N]
+          [--backend cuda|cpu] [--raster kernel|dense]
+      (without asset_dir, the procedural stand-in of the flagship model;
+      --backend is the device, --raster the raster backend: dense is the JAX
+      example's --backend jnp)
 Try:  curl -o frame.png 'http://localhost:8000/render?pipeline=shadow&camera=0.9'
 """
 
@@ -28,13 +31,14 @@ from urllib.parse import parse_qs, urlparse
 class FrameService:
     """A lazily built Scene per pipeline and a device lock."""
 
-    def __init__(self, asset_dir, size=400, device="cuda"):
+    def __init__(self, asset_dir, size=400, device="cuda", backend="kernel"):
         from .. import RenderConfig, load_model
         from ..app import flagship_model
 
         self.model = load_model(asset_dir, verbose=False) if asset_dir else flagship_model()
         self.config = RenderConfig(width=size, height=size)
         self.device = device
+        self.backend = backend
         self._scenes = {}
         self._lock = threading.Lock()
         self._renders = 0
@@ -47,7 +51,7 @@ class FrameService:
         if scene is None:
             # Raises ValueError on unknown pipeline names (the reference's
             # message), which the handler maps to HTTP 400.
-            scene = Scene(self.model, pipeline, self.config, device=self.device)
+            scene = Scene(self.model, pipeline, self.config, device=self.device, backend=self.backend)
             self._scenes[pipeline] = scene
         return scene
 
@@ -111,25 +115,31 @@ def make_handler(service):
     return Handler
 
 
-def serve(asset_dir, port=8000, size=400, device="cuda"):
+def serve(asset_dir, port=8000, size=400, device="cuda", backend="kernel"):
     """(server, service): a ThreadingHTTPServer on 127.0.0.1:`port` (0
-    picks a free port) that the caller runs with serve_forever."""
-    service = FrameService(asset_dir, size=size, device=device)
+    picks a free port) that the caller runs with serve_forever; `backend`
+    is the raster backend of every Scene (frame.BACKENDS)."""
+    service = FrameService(asset_dir, size=size, device=device, backend=backend)
     server = ThreadingHTTPServer(("127.0.0.1", port), make_handler(service))
     return server, service
 
 
 def main(argv=None):
+    from ..pipelines.frame import BACKENDS
+
     ap = argparse.ArgumentParser(description="serve rendered frames over HTTP")
     ap.add_argument("asset_dir", nargs="?", help="asset directory (default: procedural stand-in)")
     ap.add_argument("port", nargs="?", type=int, default=8000)
     ap.add_argument("--size", type=int, default=400)
-    ap.add_argument("--backend", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--backend", default="cuda", choices=("cuda", "cpu"), help="the device")
+    ap.add_argument("--raster", default="kernel", choices=BACKENDS,
+                    help="the raster backend (dense: the JAX example's --backend jnp)")
     args = ap.parse_args(argv)
-    server, _ = serve(args.asset_dir, port=args.port, size=args.size, device=args.backend)
+    server, _ = serve(args.asset_dir, port=args.port, size=args.size, device=args.backend,
+                      backend=args.raster)
     print(f"serving {args.asset_dir or 'the procedural stand-in'} on "
           f"http://127.0.0.1:{server.server_address[1]} ({args.size}x{args.size}, "
-          f"device={args.backend})", flush=True)
+          f"device={args.backend}, raster={args.raster})", flush=True)
     try:
         server.serve_forever()
     finally:

@@ -26,6 +26,9 @@ on the mesh's first device.
 Every sharded output equals the single-device render bit for bit: the row
 shards bin against their own window with its tile-row offset, which gives
 each tile the same candidates in the same order as the full-frame bin.
+config.row_bands bands only the single-device raster: each shard bins its
+window in one launch, as in the JAX package, and K2's gate reads the
+frame's row_bands, so row_bands > 1 keeps the shards on K1.
 """
 
 from __future__ import annotations
@@ -215,8 +218,10 @@ def _render_rows(geom, textures, light_direction, look_from, look_at, up, *, pip
             continue
         if config.replicate_pass1:
             # The full-height light pass on every shard: no collective, n
-            # times the pass-1 work, the same map as the all_gather.
-            shadow_full, ovf1 = _light_pass(setup1[d], config, backend)
+            # times the pass-1 work, the same map as the all_gather.  As a
+            # window of all the rows it is one launch (row shards take no
+            # row bands).
+            shadow_full, ovf1 = _light_pass(setup1[d], config, backend, rows=config.height)
             full.append(shadow_full)
             shadows.append(shadow_full[d * rows:(d + 1) * rows])
         else:

@@ -29,8 +29,10 @@ launch the CUDA raster kernels, CPU tensors run their plain torch twins.
 ``backend="dense"`` (the JAX package's "jnp") replaces the binned raster
 with ``ops.raster_dense`` and the shade with the full-screen gather shade.
 The raster and shade helpers also take a window of rows (``rows``, ``y0``)
-for the row shards of ``parallel.sharding``.  ``row_bands > 1`` (the TPU's
-on-chip memory banding) raises ``NotImplementedError``.
+for the row shards of ``parallel.sharding``.  ``row_bands = N > 1`` rasters
+the frame in disjoint tile-row bands (``_band_plan``), each binned against
+its own window with its share of the incidence cap, as the JAX package
+does; pixels equal the one-band frame's unless a cap binds.
 """
 
 from __future__ import annotations
@@ -42,7 +44,7 @@ import torch
 
 from ..ops import mathlib as ml
 from ..ops import raster_cuda
-from ..ops.binning import bin_triangles, compact_scatter
+from ..ops.binning import _round_up, bin_triangles, compact_scatter, incidence_cap
 from ..ops.raster_dense import rasterize_dense
 from ..ops.vertex import triangle_setup
 from . import shaders
@@ -236,17 +238,12 @@ BACKENDS = ("kernel", "dense")
 
 
 def _check_config(config, pipeline, backend="kernel"):
-    """Refuse what the port does not implement: an unknown backend, row
-    bands (TPU on-chip memory banding), and custom "attr:" varyings under
-    the kernel's full-screen shade, whose kernel records have no lanes for
-    them (the JAX package fails there too, with a KeyError in
+    """Refuse an unknown backend, and custom "attr:" varyings under the
+    kernel's full-screen shade, whose kernel records have no lanes for them
+    (the JAX package fails there too, with a KeyError in
     pack_triangle_records)."""
     if backend not in BACKENDS:
         raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
-    if config.row_bands > 1:
-        raise NotImplementedError(
-            "not ported to the torch frame path: row_bands (TPU on-chip memory banding)"
-        )
     attrs = tuple(n for (n, _, _) in VARYING_SPECS[pipeline] if n.startswith("attr:"))
     if attrs and backend == "kernel" and not config.compact_shade:
         raise ValueError(
@@ -263,14 +260,62 @@ def _window(config, rows, y0):
     return window, y0 // config.tile_h
 
 
+def _auto_row_bands(config):
+    """Tile-row bands of the single-device kernel raster: min(row_bands,
+    tiles_y) for an explicit row_bands >= 1, else 1.  The JAX package plans
+    row_bands=0 from the TPU's SMEM id-list and VMEM record-window budgets
+    (its frame.py:277-300); the CUDA kernel reads its lists from device
+    memory and has neither wall, so that plan is not ported."""
+    return min(config.row_bands, config.tiles_y) if config.row_bands else 1
+
+
+def _banded_caps(cap_total, tiles_y, band_tiles):
+    """Per-band incidence cap: the global cap's share of the band's tile
+    rows, floored like incidence_cap.  Kept as the JAX package has it, so
+    that both flag (and drop) the same coverage: a band can overflow where
+    the global cap would not, and the other way round."""
+    return max(4096, _round_up(-(-cap_total * band_tiles // tiles_y), 8))
+
+
+def _band_plan(setup, config):
+    """[(row_tile_offset, band_tiles, band_config)] of the kernel raster: a
+    single (0, tiles_y, config) unless _auto_row_bands says R > 1, else
+    ceil(tiles_y / R) tile rows per band (the last band shorter), each
+    band's config its window (band_tiles * tile_h rows) with its cap.
+    Shared by _rasterize and profile's binning prefix, so the profiled
+    binning is the rendered one."""
+    R = _auto_row_bands(config)
+    ty = config.tiles_y
+    if R == 1:
+        return [(0, ty, config)]
+    band_tiles = -(-ty // R)
+    cap_total = incidence_cap(setup["a1"].shape[0], config)
+    plan = []
+    for t0 in range(0, ty, band_tiles):
+        bt = min(band_tiles, ty - t0)
+        plan.append((t0, bt, dataclasses.replace(
+            config, height=bt * config.tile_h, max_incidences=_banded_caps(cap_total, ty, bt))))
+    return plan
+
+
+def _cat(parts, dim=0):
+    """The bands' outputs joined along rows (None when absent)."""
+    if parts[0] is None:
+        return None
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
+
+
 def _rasterize(setup, config, backend="kernel", spec=(), emit_idx=True, emit_z=True,
                emit_strips=0, rows=None, y0=0):
     """Raster one pass over rows [y0, y0 + rows) of the frame (all of it by
     default; a row shard of parallel.sharding otherwise, y0 a multiple of
     tile_h on the kernel backend).  The kernel backend bins against that
-    window with its tile-row offset and launches the tile raster; the dense
-    backend resolves every triangle at every pixel.  Returns (z, idx, varys,
-    strips, overflowed) cropped to (rows, width) (strips to (rows, width /
+    window with its tile-row offset and launches the tile raster: a row
+    shard in one launch, the whole frame in _band_plan's bands (one launch
+    each; z, idx and strips joined on rows, the varying planes on axis 1,
+    the overflow flags OR-ed).  The dense backend resolves every triangle
+    at every pixel and has no bands.  Returns (z, idx, varys, strips,
+    overflowed) cropped to (rows, width) (strips to (rows, width /
     emit_strips)); absent outputs are None (varys and strips always on the
     dense backend)."""
     window, row_off = _window(config, rows, y0)
@@ -279,14 +324,21 @@ def _rasterize(setup, config, backend="kernel", spec=(), emit_idx=True, emit_z=T
         z, idx = rasterize_dense(setup, H, W, config.tri_block, y_offset=y0)
         return (z if emit_z else None, idx if emit_idx else None, None, None,
                 torch.zeros((), dtype=torch.bool, device=z.device))
-    records, tris, starts, overflowed = bin_triangles(setup, window, spec, row_tile_offset=row_off)
-    z, idx, varys, strips = raster_cuda.rasterize(
-        records, tris, starts,
-        tile_h=window.tile_h, tile_w=window.tile_w,
-        tiles_y=window.tiles_y, tiles_x=window.tiles_x, row_tile_offset=row_off,
-        spec=spec, emit_idx=emit_idx, emit_z=emit_z, emit_strips=emit_strips,
-        idx_dtype=_idx_dtype(setup, window),
-    )
+    plan = _band_plan(setup, config) if rows is None else [(row_off, window.tiles_y, window)]
+    outs, flags = [], []
+    for t0, _, band in plan:
+        records, tris, starts, ovf = bin_triangles(setup, band, spec, row_tile_offset=t0)
+        outs.append(raster_cuda.rasterize(
+            records, tris, starts,
+            tile_h=band.tile_h, tile_w=band.tile_w,
+            tiles_y=band.tiles_y, tiles_x=band.tiles_x, row_tile_offset=t0,
+            spec=spec, emit_idx=emit_idx, emit_z=emit_z, emit_strips=emit_strips,
+            idx_dtype=_idx_dtype(setup, band),
+        ))
+        flags.append(ovf)
+    z, idx, varys, strips = zip(*outs)
+    z, idx, varys, strips = _cat(z), _cat(idx), _cat(varys, dim=1), _cat(strips)  # varys: planes first
+    overflowed = flags[0] if len(flags) == 1 else torch.stack(flags).any()
     return (
         z[:H, :W] if z is not None else None,
         idx[:H, :W] if idx is not None else None,
@@ -319,9 +371,10 @@ def _strip_mask_len(config):
 def _use_fused_raster(spec, config, backend, setup, pspec, needs_z):
     """The gate of the fused two-pass kernel (the JAX predicate): the kernel
     backend, a two-pass pipeline, the shade compact, fuse_passes set, the
-    camera z not wanted, the index int32, and no planes spec (K2 has
-    neither a varying phase nor an int16 target).  The JAX gate's one-band
-    condition always holds here: the port has no row bands."""
+    camera z not wanted, the index int32, no planes spec (K2 has neither a
+    varying phase nor an int16 target) and one row band.  The row shards
+    read it with the frame's config, so row_bands > 1 turns K2 off there
+    too."""
     return (
         spec.two_pass
         and backend == "kernel"
@@ -330,6 +383,7 @@ def _use_fused_raster(spec, config, backend, setup, pspec, needs_z):
         and not needs_z
         and _idx_dtype(setup, config) == "int32"
         and pspec is None
+        and _auto_row_bands(config) == 1
     )
 
 

@@ -4,10 +4,12 @@ A frame is hundreds of eager launches, so neither the host clock nor one
 kernel's time attributes it.  This module runs CUMULATIVE PREFIXES of
 render_frame — vertex (the uniforms included) | + binning | + raster | the
 full frame with needs_z=False (the burst posture) — each taking the same
-branches render_frame takes for the scene's pipeline and config, and
+branches render_frame takes for the scene's pipeline, config and raster
+backend (the binning prefix bins the row bands the raster bins), and
 reports the differences between consecutive prefixes as stage costs, with
 the uniforms alone (the matrix stack, part of the vertex stage) and the
-device-to-host frame fetch timed on their own.
+device-to-host frame fetch timed on their own.  The dense backend has no
+binning stage: its prefixes are vertex | + raster | full.
 
 Protocol: each prefix runs once to warm up, then `iters` times over
 slightly different camera/light angles.  On a GPU the run is timed twice:
@@ -29,6 +31,7 @@ from ..ops.vertex import triangle_setup
 from ..utils.timing import StageTimer
 from .frame import (
     PIPELINES,
+    _band_plan,
     _check_config,
     _fused_raster,
     _planes_spec,
@@ -48,10 +51,15 @@ STAGE_LABELS = {
 }
 
 
-def _prefix_fn(pipeline, config, stage):
+def stages(backend="kernel"):
+    """The prefixes profiled on a raster backend: no binning on "dense"."""
+    return STAGES if backend == "kernel" else tuple(s for s in STAGES if s != "bin")
+
+
+def _prefix_fn(pipeline, config, stage, backend="kernel"):
     """fn(geom, textures, light_direction, look_from, look_at, up) running
-    render_frame up to `stage` (one of STAGES, or "uniforms": the matrix
-    stack alone) with render_frame's branch choices."""
+    render_frame up to `stage` (one of stages(backend), or "uniforms": the
+    matrix stack alone) with render_frame's branch choices."""
     spec = PIPELINES[pipeline]
 
     def fn(geom, textures, light_direction, look_from, look_at, up):
@@ -62,7 +70,8 @@ def _prefix_fn(pipeline, config, stage):
             return ml.default_prepare(config, light_direction, look_from, look_at, up)
         if stage == "full":
             return render_frame(geom, textures, light_direction, look_from, look_at, up,
-                                pipeline=pipeline, config=config, needs_z=False)["frame"]
+                                pipeline=pipeline, config=config, needs_z=False,
+                                backend=backend)["frame"]
         setup1 = None
         if spec.two_pass:
             u1 = ml.shadow_pass_1_prepare(config, light_direction, look_at, up)
@@ -73,21 +82,29 @@ def _prefix_fn(pipeline, config, stage):
         setup = triangle_setup(geom, uniforms, config, needs=spec.needs)
         # The camera pass bins and rasters the spec render_frame gives it:
         # no varying lanes for the strip shade (the planes spec under
-        # strip_planes), the kernel spec for the full-screen shade.
-        compact = config.compact_shade
+        # strip_planes), the kernel spec for the full-screen shade, none on
+        # the dense backend.
+        compact = backend == "kernel" and config.compact_shade
         pspec = _planes_spec(pipeline, textures, config) if compact else None
-        kspec = (pspec or ()) if compact else kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
+        if compact:
+            kspec = pspec or ()
+        elif backend == "kernel":
+            kspec = kernel_varying_spec(pipeline, textures, tile=config.tex_tile)
+        else:
+            kspec = ()
         if stage == "vertex":
             return setup["rx"]
         if stage == "bin":
-            if setup1 is not None:
-                bin_triangles(setup1, config)
-            return bin_triangles(setup, config, kspec)[0]
-        if _use_fused_raster(spec, config, "kernel", setup, pspec, needs_z=False):
+            light = ((setup1, ()),) if setup1 is not None else ()
+            for s, sp in light + ((setup, kspec),):
+                for t0, _, band in _band_plan(s, config):
+                    out = bin_triangles(s, band, sp, row_tile_offset=t0)[0]
+            return out
+        if _use_fused_raster(spec, config, backend, setup, pspec, needs_z=False):
             return _fused_raster(setup1, setup, config)[1]
         if setup1 is not None:
-            _rasterize(setup1, config, emit_idx=False)
-        return _rasterize(setup, config, spec=kspec, emit_z=False,
+            _rasterize(setup1, config, backend, emit_idx=False)
+        return _rasterize(setup, config, backend, spec=kspec, emit_z=False,
                           emit_strips=_strip_mask_len(config) if compact else 0)[1]
 
     return fn
@@ -108,16 +125,16 @@ def _views(n, device):
 
 
 def stage_breakdown(scene, iters: int = 12):
-    """Per-stage ms of a Scene's pipeline, config and device.
+    """Per-stage ms of a Scene's pipeline, config, raster backend and device.
 
-    Returns (deltas, cumulative): dicts of stage -> {"host": ms,
-    "device": ms, or None on the CPU}, per frame.  deltas attribute each
-    stage's share; deltas["uniforms"] is the part of the vertex stage spent
-    in the matrix stack, deltas["fetch"] the device-to-host copy of one
-    frame (Scene.get_frame_buffer)."""
+    Returns (deltas, cumulative): dicts of stage (stages(scene.backend)) ->
+    {"host": ms, "device": ms, or None on the CPU}, per frame.  deltas
+    attribute each stage's share; deltas["uniforms"] is the part of the
+    vertex stage spent in the matrix stack, deltas["fetch"] the
+    device-to-host copy of one frame (Scene.get_frame_buffer)."""
     geom, textures = scene._geom, scene._textures
-    pipeline, config = scene.pipeline_name, scene.config
-    _check_config(config, pipeline)
+    pipeline, config, backend = scene.pipeline_name, scene.config, scene.backend
+    _check_config(config, pipeline, backend)
     cuda = scene.device.type == "cuda"
     anchor = geom["pos_tri"]  # StageTimer synchronizes this tensor's device
     views = _views(iters, scene.device)
@@ -136,8 +153,8 @@ def stage_breakdown(scene, iters: int = 12):
                 "device": start.elapsed_time(end) / n if cuda else None}
 
     cumulative = {}
-    for stage in STAGES:
-        fn = _prefix_fn(pipeline, config, stage)
+    for stage in stages(backend):
+        fn = _prefix_fn(pipeline, config, stage, backend)
         fn(geom, textures, *views[0])  # warm-up
         cumulative[stage] = clock(stage, lambda: [fn(geom, textures, *v) for v in views], iters)
 
@@ -149,7 +166,7 @@ def stage_breakdown(scene, iters: int = 12):
     fetch = clock("fetch", lambda: [scene.get_frame_buffer() for _ in range(n_fetch)], n_fetch)
 
     deltas, prev = {}, {"host": 0.0, "device": 0.0}
-    for stage in STAGES:
+    for stage in cumulative:
         deltas[stage] = {k: None if v is None else v - prev[k] for k, v in cumulative[stage].items()}
         prev = cumulative[stage]
     deltas["uniforms"] = uniforms
@@ -163,14 +180,15 @@ def print_stage_breakdown(scene, iters: int = 6, out=print):
     deltas, cumulative = stage_breakdown(scene, iters)
     cuda = deltas["full"]["device"] is not None
     cfg = scene.config
-    out(f"per-stage time of '{scene.pipeline_name}' at {cfg.width}x{cfg.height} on {scene.device}, "
+    out(f"per-stage time of '{scene.pipeline_name}' at {cfg.width}x{cfg.height} on {scene.device} "
+        f"({scene.backend} raster), "
         f"{iters} frames per prefix (cumulative-prefix deltas, ms per frame; "
         + ("CUDA events | host clock):" if cuda else "host clock):"))
 
     def fmt(t):
         return f"{t['device']:8.3f} | {t['host']:8.3f}" if cuda else f"{t['host']:8.3f}"
 
-    for stage in STAGES:
+    for stage in stages(scene.backend):
         out(f"  {STAGE_LABELS[stage]:22s} {fmt(deltas[stage])} ms"
             f"   (prefix total {fmt(cumulative[stage])} ms)")
         if stage == "vertex":

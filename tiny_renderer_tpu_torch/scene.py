@@ -18,26 +18,32 @@ from .config import RenderConfig
 from .convert import scene_arrays, to_tensor
 from .ops import mathlib as ml
 from .ops.vertex import expand_geometry
-from .pipelines.frame import PIPELINES, make_burst_fn, make_frame_fn, prepack_textures
+from .pipelines.frame import (
+    BACKENDS, PIPELINES, make_burst_fn, make_frame_fn, prepack_textures)
 
 
 class Scene:
     """A model, a pipeline and camera/light state, rendered on `device`
-    ("cuda" runs the CUDA raster kernel, "cpu" its plain torch twin)."""
+    ("cuda" runs the CUDA raster kernel, "cpu" its plain torch twin) by the
+    raster `backend`: "kernel" (the binned tile raster) or "dense" (every
+    triangle at every pixel, the JAX package's "jnp"; frame.BACKENDS)."""
 
     def __init__(self, model: Model, pipeline_name: str = "default",
                  config: RenderConfig | None = None, device="cuda",
-                 vertex_attrs: dict | None = None):
+                 vertex_attrs: dict | None = None, backend: str = "kernel"):
         if pipeline_name not in PIPELINES:
             raise ValueError(
                 f"Provided pipeline name is not supported! ({pipeline_name!r}; "
                 f"expected one of {sorted(PIPELINES)})"
             )
+        if backend not in BACKENDS:
+            raise ValueError(f"backend must be one of {BACKENDS}, got {backend!r}")
         # The stored config is the resolved one, so the texture prepack and
         # the frame function agree on layouts.
         self.config = (config or RenderConfig()).resolve(pipeline_name)
         self.pipeline_name = pipeline_name
         self.device = torch.device(device)
+        self.backend = backend
         self.model = model
 
         mesh = model.mesh
@@ -64,7 +70,7 @@ class Scene:
             key = aname if aname.startswith("attr:") else f"attr:{aname}"
             self._geom[key] = to_tensor(np.asarray(arr, np.float32), self.device)
         self._textures = prepack_textures(textures, pipeline_name, tile=self.config.tex_tile)
-        self._frame_fn = make_frame_fn(pipeline_name, self.config)
+        self._frame_fn = make_frame_fn(pipeline_name, self.config, backend)
 
         # Scene state (reference defaults, scene.rs:66-69).
         self._light_direction = np.array([0.0, 0.0, -1.0], np.float32)
@@ -107,7 +113,8 @@ class Scene:
     def render_sequence(self, camera_angles, light_angles) -> np.ndarray:
         """Render an orbit burst (src/app.rs:200-207) and return the frames as
         (N, H, W, 3) u8, presentation-flipped like get_frame_buffer."""
-        burst = make_burst_fn(self.pipeline_name, self.config, keep_frames=True)
+        burst = make_burst_fn(self.pipeline_name, self.config, keep_frames=True,
+                              backend=self.backend)
         out = burst(
             self._geom, self._textures,
             to_tensor(np.asarray(camera_angles, np.float32), self.device),
