@@ -1,5 +1,6 @@
 """Torch port: the package never imports jax (the GPU machine has none)."""
 
+import re
 import subprocess
 import sys
 import textwrap
@@ -62,8 +63,17 @@ _SCRIPT = textwrap.dedent("""
                       backend="dense")
     dense.set_light_direction([0.3, 0.0, 0.95])
     assert (dense.get_frame_buffer() > 0).any()
+    # The bench harness, its CPU main once at 64x64 on a small scene.
+    import contextlib, io, json
+    from tiny_renderer_tpu_torch import bench
+    bench.bench_scene = lambda asset, subdivide=0: (model, "small sphere")
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        assert bench.main(["--backend", "cpu", "--size", "64", "--frames", "8"]) == 0
+    payload = json.loads(out.getvalue().splitlines()[-1])
+    assert payload["device"] == "cpu" and payload["value"] > 0, payload
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tiny_renderer_tpu."))]
-    assert loaded == ["jax"] and sys.modules["jax"] is None, loaded
+    assert loaded == ["jax"] and sys.modules["jax"] is None and "bench" not in sys.modules, loaded
     print("OK", trt.PIPELINE_NAMES)
 """)
 
@@ -81,3 +91,5 @@ def test_package_sources_never_import_jax():
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "from tiny_renderer_tpu." not in text and "import tiny_renderer_tpu\n" not in text, path
+        # Nor the root bench.py (the JAX package's harness).
+        assert not re.search(r"^\s*(import bench\b|from bench import)", text, re.M), path
