@@ -33,18 +33,21 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              (its probe build) equal raster_cuda.cull_masks, the torch
              model of the cull that the work counts below come from.
 4. slice   — Scene.render plus a 16-frame 800x800 shadow burst of the
-             flagship scene through the public API: two kernel launches
-             per frame, no black frame, no overflow, frames bit-identical
-             to the same burst with the twin as raster, and a frame within
-             the 0.5% tie budget of the same frame rendered on the CPU.
+             flagship scene through the public API, each a replayed CUDA
+             graph: two kernel launches per frame (and per capture's eager
+             warm-up frame), no black frame, no overflow, frames
+             bit-identical to the same frames rendered eagerly with the
+             twin as raster, and a frame within the 0.5% tie budget of the
+             same frame rendered on the CPU.
 5. pipelines — for each of the six other pipelines (default, phong,
              normal_map, specular, darboux, occlusion) at 800x800, default
              config, on the flagship scene with seeded random normal,
              tangent-normal and specular maps: Scene.render with z and an
-             8-frame burst, one K1 launch per frame (two for occlusion), no
-             black frame, no overflow, render and burst bit-identical to the
-             twin raster, and the frame within the 0.5% tie budget of the
-             same frame on the CPU.
+             8-frame burst (replayed graphs), one K1 launch per frame (two
+             for occlusion), no black frame, no overflow, render and burst
+             bit-identical to the eager frames with the twin raster, and
+             the frame within the 0.5% tie budget of the same frame on the
+             CPU.
 6. knobs   — the same shadow burst (first 4 angles) under each raster knob config
              (fuse_passes, strip_mask + strip_planes, idx_int16,
              csr_indirect=False + strip_mask, compact_shade=False,
@@ -58,7 +61,24 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              burst, with the launches each config implies; and darboux
              with 512^2 normal maps, whose full-screen shade (the 15-plane
              reference spec) must equal its strip shade (per-map samplers).
-7. parallel — the scale-out path (parallel.sharding).  On the random soups
+7. graph   — the frame and the burst as replayed CUDA graphs
+             (pipelines/graphs.py) for the seven pipelines under every knob
+             config above and the custom toon, fog (default, fuse_passes,
+             strip_mask + strip_planes) and glow: Scene.render byte-equal
+             to the eager render_frame at three poses with the eager launch
+             counts per replay; a 64-frame replayed burst's checksums and
+             overflow flags equal to the eager burst's, with its launches
+             (occlusion under occlusion_dedup also equal to its default
+             burst's);
+             torch.cuda.set_sync_debug_mode("error") silent around a replay
+             and a burst; a pipeline re-registered with another shade
+             renders the new shade through a new Scene and burst.  Prints
+             the capture seconds and the memory reserved per graph, ms per
+             frame of eager against replayed bursts and host loops per
+             pipeline, and under torch.profiler over replayed shadow bursts
+             (captured before the trace) the device's idle share and each
+             mode's K1/K2 device ms per launch inside the graph.
+8. parallel — the scale-out path (parallel.sharding).  On the random soups
              and the flagship, every kernel mode on a band of 5 tile rows
              at row tile offsets 1, 3 and the last band, binned for that
              band (K1 z, idx, z+idx, int16, strips SL 8 and 16, phase 2
@@ -83,7 +103,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              banded K1 and K2 launches of one sharded frame (paced, twin,
              device ms) beside their bound and the card's name and power
              limit.
-8. timing  — kernel and twin ms per launch per mode at the flagship shapes
+9. timing  — kernel and twin ms per launch per mode at the flagship shapes
              (CUDA events around launches paced by the host, as the times
              before the redesign were taken, and the kernel's device time
              with the launch queue held full), beside those earlier times
@@ -94,7 +114,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              4-plane and 15-plane specs (paced, twin and device times)
              beside its bound;
              beside the card's name and power limit.
-9. entry   — the entry points above the frame path, each at 800x800 on the
+10. entry  — the entry points above the frame path, each at 800x800 on the
              flagship scene.  Registry: custom pipelines registered with
              register_pipeline — toon (one pass, uv + intensity), fog
              (two_pass, uv + zfrag, reads the shadow buffer) and glow (the
@@ -116,7 +136,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              angle, /healthz ok.  Prints the stage breakdown of shadow and
              default (CUDA-event and host ms per stage), ms per served
              request and interactive ms per frame.
-10. capacity — the capacity scale.  The flagship stand-in written to a
+11. capacity — the capacity scale.  The flagship stand-in written to a
              temporary directory (model.obj and four 1024^2 TGAs, the
              texture RLE-coded), loaded by load_model on the native path
              (assets/native.py, g++-built; the NumPy parsers patched to
@@ -136,13 +156,13 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              twin, device) beside their bounds, each pass's device ms, and
              the capacity frames (burst ms/frame and Scene.render latency)
              in turns with the flagship's shadow frame.
-11. profile — the CLI with --profile (torch.profiler): the trace's GPU
+12. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
              profiler ran (the last phase timed in this process: only the
              bench phase's check follows, and its times come from fresh
              processes).
-12. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
+13. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
              In process: bench_config for diablo/shadow at 800x800 with 16
              frames, its K1 launches counted, its timed burst's checksums
              bit-equal to render_burst's on the same angles and the same
@@ -155,7 +175,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              headline alone twice more (--frames 64), each in a process of
              its own, for the spread.
 
-Each phase prints its seconds.  Launch counts are set to 0 just before each
+Each phase prints its seconds and the most device memory reserved in it.  Launch counts are set to 0 just before each
 path is driven and read just after (the kernels line's launches_by_pipeline
 includes the custom pipelines toon, fog and glow, the sharded paths and the
 capacity scene).  Prints a JSON line of kernel results
@@ -477,7 +497,7 @@ def host_ms(fn, n):
 
 
 def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scene, default_scene):
-    """Phase 8: the entry points above the frame path (register_pipeline,
+    """Phase 10: the entry points above the frame path (register_pipeline,
     the CLI, the interactive loop, the frame server), every scene starting
     from `config`; launches are reported through record(pipeline, counts)
     and twin is the pair of patches that swap the kernels for their twins."""
@@ -486,11 +506,12 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
     from tiny_renderer_tpu_torch.examples import custom_pipeline as example
     from tiny_renderer_tpu_torch.examples.serve_http import serve
     from tiny_renderer_tpu_torch.ops import raster_cuda
-    from tiny_renderer_tpu_torch.pipelines.frame import make_burst_fn, render_frame
+    from tiny_renderer_tpu_torch.pipelines.frame import _render_burst_eager, make_burst_fn, render_frame
     from tiny_renderer_tpu_torch.pipelines.profile import print_stage_breakdown
     from tiny_renderer_tpu_torch.utils.png import png_bytes
 
     cpu_view = [to_tensor(np.float32(v), "cpu") for v in VIEW]
+    view = [to_tensor(np.float32(v), dev) for v in VIEW]
     # (a) Registry: the custom pipelines through Scene and a burst.
     glow = example.glow_attribute(model)
     custom_runs = {}  # name -> (burst fn, scene, burst frames, Scene.render frame)
@@ -508,9 +529,9 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         cout = cburst(csc._geom, csc._textures, pcams, pligs)
         torch.cuda.synchronize()
         got_burst = dict(raster_cuda.LAUNCHES)
-        want = {k: per_frame.get(k, 0) for k in got_render}
+        want = {k: 2 * per_frame.get(k, 0) for k in got_render}  # warm-up + replay
         check(got_render == want, f"{name}: Scene.render launches {got_render}, expected {want}")
-        want = {k: N_PIPE_FRAMES * v for k, v in want.items()}
+        want = {k: (N_PIPE_FRAMES + 1) * per_frame.get(k, 0) for k in got_render}
         check(got_burst == want, f"{name}: burst launches {got_burst}, expected {want}")
         record(name, got_render)
         record(name, got_burst)
@@ -519,8 +540,9 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         check(bool((clit > 0).all()), f"{name}: a burst frame is all black: lit share {clit.tolist()}")
         check(not bool(cout["overflow"].any()) and not csc.overflowed, f"{name}: a frame overflowed")
         with twin[0], twin[1]:
-            tout = cburst(csc._geom, csc._textures, pcams, pligs)
-            trender = csc.render()
+            tout = _render_burst_eager(csc._geom, csc._textures, pcams, pligs, pipeline=name,
+                                       config=csc.config, keep_frames=True)
+            trender = render_frame(csc._geom, csc._textures, *view, pipeline=name, config=csc.config)
         check(raster_cuda.LAUNCHES == got_burst, f"{name}: the twin burst launched a kernel")
         check(torch.equal(tout["frames"], cframes), f"{name}: burst frames differ from the twin-raster burst")
         for k in ("frame", "z", "shadow"):
@@ -532,9 +554,10 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         check(cdiff < 0.005, f"{name}: GPU frame differs from the CPU frame on {cdiff:.4%} of pixels")
         custom_runs[name] = (cburst, csc, cframes, r1["frame"])
         phase("entry", f"{name}: Scene.render {got_render['raster']} + burst {got_burst['raster']} K1 "
-              f"launches ({per_frame['raster']} per frame), lit share {min(clit.tolist()):.4f}-"
-              f"{max(clit.tolist()):.4f}, render and {N_PIPE_FRAMES}-frame burst bit-identical to the twin "
-              f"raster; vs the CPU frame {cdiff:.6%} of pixels differ")
+              f"launches ({per_frame['raster']} per frame, a warm-up frame per capture), lit share "
+              f"{min(clit.tolist()):.4f}-{max(clit.tolist()):.4f}, replayed render and {N_PIPE_FRAMES}-frame "
+              f"burst bit-identical to the eager frames with the twin raster; vs the CPU frame {cdiff:.6%} "
+              "of pixels differ")
     for label, knobs, per_frame in (("fuse_passes", dict(fuse_passes=True), {"fused": 1}),
                                     ("strip_mask + strip_planes", dict(strip_mask=True, strip_planes=True),
                                      {"raster": 2, "strips": 1, "planes": 1})):
@@ -545,7 +568,7 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         torch.cuda.synchronize()
         got = dict(raster_cuda.LAUNCHES)
         record("fog", got)
-        want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+        want = {k: (N_KNOB_FRAMES + 1) * per_frame.get(k, 0) for k in got}  # + the capture's warm-up
         check(got == want, f"fog {label}: launches {got}, expected {want}")
         check(torch.equal(fout["frames"], custom_runs["fog"][2][:N_KNOB_FRAMES]),
               f"fog {label}: burst frames differ from fog's default burst")
@@ -603,7 +626,8 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         torch.cuda.synchronize()
         got = dict(raster_cuda.LAUNCHES)
         record("toon", got)
-        check(rc == 0 and got["raster"] == 8, f"app.main toon --save-seq: rc {rc}, launches {got}")
+        # One burst of 8 frames, and its capture's warm-up frame.
+        check(rc == 0 and got["raster"] == 9, f"app.main toon --save-seq: rc {rc}, launches {got}")
         sc = Recording.made[-1]
         step = np.arange(8) / 60.0
         seq = Scene(sc.model, "toon", sc.config, device=dev).render_sequence(
@@ -622,8 +646,9 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         record("shadow", got)
         sc = Recording.made[-1]
         check(rc == 0 and sc.config.fuse_passes, f"app.main --knob fuse_passes=true: rc {rc}")
-        # Scene.render asks for the camera z, which K2 does not emit: K1.
-        check(got["raster"] == 8 and got["fused"] == 0, f"app.main --knob fuse_passes=true: launches {got}")
+        # Scene.render asks for the camera z, which K2 does not emit: K1, 2
+        # per frame of 4 and of the capture's warm-up.
+        check(got["raster"] == 10 and got["fused"] == 0, f"app.main --knob fuse_passes=true: launches {got}")
         ref = again(sc, config=config)
         check(read(out["fuse"]) == png_bytes(ref.get_frame_buffer()),
               "--knob fuse_passes=true differs from the default config's Scene")
@@ -643,6 +668,7 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
     want = again(types.SimpleNamespace(model=model, pipeline_name="shadow", config=isc.config, **dict(zip(
         ("_look_from", "_look_at", "_up", "_light_direction"), app._angles_to_vectors(state.camera, state.light)))))
     inter_ms = {}
+    isc.render()  # its graph's capture, before the timed loops
     for label, serial in (("pipelined", False), ("serial", True)):
         viewer = ScriptedViewer(KEY_SCRIPT)
         args = types.SimpleNamespace(camera_angle=0.0, light_angle=0.0, no_fps=True, serial_present=serial)
@@ -701,8 +727,255 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         unregister_pipeline(name)
 
 
+def trace_kernels(run, dev):
+    """(GPU events of the chrome trace of run() under torch.profiler, the
+    device's busy ms and span ms over them).  Events: (name, cat, ms)."""
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize(dev)
+        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize(dev)
+        prof.export_chrome_trace(f"{tmp}/trace.json")
+        with open(f"{tmp}/trace.json") as f:
+            events = json.load(f)["traceEvents"]
+    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    if not gpu:
+        return [], 0.0, 0.0
+    busy = sum(e["dur"] for e in gpu) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in gpu) - min(e["ts"] for e in gpu)) / 1e3
+    return [(e["name"], e["cat"], e["dur"] / 1e3) for e in gpu], busy, span
+
+
+# The kernels of csrc/raster.cu as the trace names them: K1's instantiations
+# raster_kernel<with_idx, with_planes> and K2.
+K1_TRACE = re.compile(r"raster_kernel<(true|false), (true|false)>")
+K2_TRACE = re.compile(r"raster_fused_kernel")
+# Shadow configs whose replayed burst (or, for "camera z+idx", replayed
+# Scene.render) gives one mode's in-graph time: (knobs, the instantiation
+# (idx, planes) or "fused").
+GRAPH_MODES = {
+    "light z": ({}, ("false", "false")),
+    "camera idx": ({}, ("true", "false")),
+    "camera z+idx": ({}, ("true", "false")),
+    "gathered": (dict(csr_indirect=False), ("true", "false")),
+    "int16": (dict(idx_int16=True), ("true", "false")),
+    "strips": (dict(strip_mask=True), ("true", "false")),
+    "planes": (dict(strip_planes=True), ("true", "true")),
+    "fused": (dict(fuse_passes=True), "fused"),
+}
+N_GRAPH_FRAMES = 64
+N_GRAPH_TIMED = 16
+
+
+def graph_phase(dev, model, pmodel, smi, record):
+    """Phase 7: the frame and the burst as replayed CUDA graphs, for the
+    seven pipelines under their knob configs and the custom toon, fog and
+    glow.  Each Scene.render (a replayed graph) byte-equal to the eager
+    render_frame at three poses, with the eager launch counts; a
+    64-frame replayed burst's checksums and overflow flags equal to the
+    eager burst's, with its launch counts; sync debug mode "error" silent
+    around a replay and a burst; a re-registered pipeline renders its new
+    shade.  Times: eager against replayed bursts and host loops per
+    pipeline, the device's idle share under the profiler over a replayed
+    burst, each mode's K1/K2 device ms inside a replayed graph, capture
+    seconds and memory reserved per graph.  Returns {mode: in-graph ms per
+    launch}."""
+    from tiny_renderer_tpu_torch import RenderConfig, Scene, app, register_pipeline, unregister_pipeline
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.examples import custom_pipeline as example
+    from tiny_renderer_tpu_torch.ops import raster_cuda
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+    from tiny_renderer_tpu_torch.pipelines import graphs
+    from tiny_renderer_tpu_torch.pipelines.frame import _render_burst_eager, make_burst_fn, render_frame
+
+    poses = [app._angles_to_vectors(c, li) for c, li in ((0.2, -0.5), (0.9, 0.4), (-1.3, 2.2))]
+    cams = torch.tensor(0.37 + 0.05 * np.arange(N_GRAPH_FRAMES), dtype=torch.float32, device=dev)
+    ligs = torch.tensor(-0.6 + 0.03 * np.arange(N_GRAPH_FRAMES), dtype=torch.float32, device=dev)
+    glow = example.glow_attribute(model)
+    runs = [("shadow", "default", {}, {"raster": 2})]
+    runs += [("shadow", k, knobs, per) for k, (knobs, per) in KNOBS.items()]
+    for p in NEW_PIPELINES:
+        runs.append((p, "default", {}, pipeline_launches(p)))
+        runs += [(p, k, knobs, per) for k, (knobs, per) in pipeline_knobs(p).items()]
+    runs.append(("occlusion", "dedup", dict(occlusion_dedup=True), pipeline_launches("occlusion")))
+    runs += [("toon", "default", {}, {"raster": 1}), ("fog", "default", {}, {"raster": 2}),
+             ("fog", "fuse", dict(fuse_passes=True), {"fused": 1}),
+             ("fog", "mask+planes", dict(strip_mask=True, strip_planes=True),
+              {"raster": 2, "strips": 1, "planes": 1}),
+             ("glow", "default", {}, {"raster": 1})]
+
+    def counted(fn):
+        raster_cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize(dev)
+        return out, dict(raster_cuda.LAUNCHES)
+
+    def views(pose):
+        return [to_tensor(np.float32(v), dev) for v in (pose[3], *pose[:3])]
+
+    captures, scenes, sums = [], {}, {}
+    for pipeline, label, knobs, per_frame in runs:
+        name = f"{pipeline} {label}"
+        sc = Scene(pmodel if pipeline in NEW_PIPELINES else model, pipeline, RenderConfig(**knobs), device=dev,
+                   vertex_attrs={"glow": glow} if pipeline == "glow" else None)
+        before = tframe._GRAPHS.graphs()
+        for i, pose in enumerate(poses):
+            sc.set_camera(*pose[:3])
+            sc.set_light_direction(pose[3])
+            got, g_counts = counted(sc.render)
+            want, e_counts = counted(lambda: render_frame(sc._geom, sc._textures, *views(pose),
+                                                          pipeline=pipeline, config=sc.config))
+            for k in ("frame", "z", "shadow", "overflow"):
+                check(torch.equal(got[k], want[k]), f"graph {name} pose {i}: replayed {k} differs from eager")
+            if i:  # the first call also ran the capture's warm-up frame
+                check(g_counts == e_counts and g_counts["raster"] + g_counts["fused"] > 0,
+                      f"graph {name}: launches per replay {g_counts}, eager {e_counts}")
+        record(pipeline, g_counts)
+        burst = make_burst_fn(pipeline, sc.config)
+        burst(sc._geom, sc._textures, cams[:1], ligs[:1])  # the capture
+        bg, bg_counts = counted(lambda: burst(sc._geom, sc._textures, cams, ligs))
+        be, be_counts = counted(lambda: _render_burst_eager(sc._geom, sc._textures, cams, ligs,
+                                                            pipeline=pipeline, config=sc.config))
+        want = {k: N_GRAPH_FRAMES * per_frame.get(k, 0) for k in bg_counts}
+        check(bg_counts == be_counts == want, f"graph {name}: burst launches {bg_counts}, eager {be_counts}, "
+              f"expected {want}")
+        record(pipeline, bg_counts)
+        check(torch.equal(bg["checksums"], be["checksums"]) and torch.equal(bg["overflow"], be["overflow"]),
+              f"graph {name}: the replayed burst's checksums differ from the eager burst's")
+        check(not bool(bg["overflow"].any()), f"graph {name}: overflow")
+        sums[pipeline, label] = bg["checksums"]
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            sc.render()
+            burst(sc._geom, sc._textures, cams, ligs)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize(dev)
+        new = [g for g in tframe._GRAPHS.graphs() if not any(g is b for b in before)]
+        captures += [(name, g.capture_s, g.pool_bytes) for g in new]
+        scenes[pipeline, label] = (sc, burst)
+        phase("graph", f"{name}: Scene.render replayed at 3 poses byte-equal to eager render_frame "
+              f"(launches per replay {({k: v for k, v in g_counts.items() if v})} = eager); "
+              f"{N_GRAPH_FRAMES}-frame replayed burst checksums equal to the eager burst's, launches "
+              f"{({k: v for k, v in bg_counts.items() if v})} = eager; sync debug mode 'error' silent; "
+              "graphs captured (s, MB reserved): " + ", ".join(f"{c:.3f} s {b / 2**20:.1f}" for _, c, b in
+                                                               captures[len(captures) - len(new):]))
+    check(torch.equal(sums["occlusion", "dedup"], sums["occlusion", "default"]),
+          "graph occlusion dedup: the burst's checksums differ from occlusion's default burst")
+    phase("graph", f"occlusion_dedup: the {N_GRAPH_FRAMES}-frame replayed burst's checksums equal to the "
+          "default occlusion burst's")
+    caps = [c for _, c, _ in captures]
+    mbs = [b / 2**20 for _, _, b in captures]
+    phase("graph", f"{len(runs)} configs, {len(captures)} graphs captured: capture (warm-up + capture) "
+          f"{min(caps):.3f}-{max(caps):.3f} s (median {float(np.median(caps)):.3f}), memory reserved per graph "
+          f"{min(mbs):.1f}-{max(mbs):.1f} MB (median {float(np.median(mbs)):.1f}; the largest: "
+          + ", ".join(f"{n} {b / 2**20:.1f}" for n, _, b in sorted(captures, key=lambda x: -x[2])[:3])
+          + f"); at most {graphs.GRAPH_CACHE_SIZE} graphs alive  [{smi}]")
+
+    # A re-registered pipeline renders its new shade (the gen key).
+    def negative(frag, uniforms, textures, config):
+        return 255 - example.shade_toon(frag, uniforms, textures, config)
+
+    spec = example.TOON_SPEC
+    register_pipeline("regen", example.shade_toon, varying_spec=spec, maps=("texture",),
+                      needs=("vertex_intensity",), overwrite=True)
+    try:
+        old = Scene(model, "regen", RenderConfig(), device=dev)
+        a = old.render()["frame"]
+        register_pipeline("regen", negative, varying_spec=spec, maps=("texture",),
+                          needs=("vertex_intensity",), overwrite=True)
+        sc = Scene(model, "regen", RenderConfig(), device=dev)
+        b = sc.render()
+        e = render_frame(sc._geom, sc._textures, *views((old._look_from, old._look_at, old._up,
+                                                         old._light_direction)), pipeline="regen", config=sc.config)
+        covered = b["z"] > -3e38
+        check(torch.equal(b["frame"], e["frame"]) and bool(covered.any())
+              and torch.equal(b["frame"][covered], 255 - a[covered]),
+              "re-registered pipeline: the new Scene does not render the new shade")
+        bb = make_burst_fn("regen", sc.config)(sc._geom, sc._textures, cams[:4], ligs[:4])
+        eb = _render_burst_eager(sc._geom, sc._textures, cams[:4], ligs[:4], pipeline="regen", config=sc.config)
+        check(torch.equal(bb["checksums"], eb["checksums"]), "re-registered pipeline: the burst's checksums")
+    finally:
+        unregister_pipeline("regen")
+    phase("graph", "a pipeline re-registered with another shade: a new Scene and burst replay graphs of the "
+          "new shade (its generation in the key), equal to the eager frames")
+
+    # Times: eager against replayed, bursts and host loops, pipelines in turns.
+    def burst_ms(fn, sc):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        out = fn(sc._geom, sc._textures, cams[:N_GRAPH_TIMED], ligs[:N_GRAPH_TIMED])
+        out["checksums"].cpu()
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t) * 1e3 / N_GRAPH_TIMED
+
+    def loop_ms(render, sc):
+        torch.cuda.synchronize(dev)
+        t = time.perf_counter()
+        for i in range(N_GRAPH_TIMED):
+            a, b = 0.37 + 0.05 * i, -0.6 + 0.03 * i
+            sc.set_camera(*app._angles_to_vectors(a, b)[:3])
+            sc.set_light_direction(app._angles_to_vectors(a, b)[3])
+            render(sc)
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t) * 1e3 / N_GRAPH_TIMED
+
+    def eager_render(sc):
+        vecs = [to_tensor(v, dev) for v in (sc._light_direction, sc._look_from, sc._look_at, sc._up)]
+        return render_frame(sc._geom, sc._textures, *vecs, pipeline=sc.pipeline_name, config=sc.config)
+
+    kinds = {
+        "burst eager": lambda sc, fn: burst_ms(lambda *a: _render_burst_eager(
+            *a, pipeline=sc.pipeline_name, config=sc.config), sc),
+        "burst replayed": lambda sc, fn: burst_ms(fn, sc),
+        "loop eager": lambda sc, fn: loop_ms(eager_render, sc),
+        "loop replayed": lambda sc, fn: loop_ms(Scene.render, sc),
+    }
+    best = {(p, k): float("inf") for p in PIPELINE_ORDER for k in kinds}
+    for rnd in range(2):
+        for p in (PIPELINE_ORDER if rnd == 0 else PIPELINE_ORDER[::-1]):
+            for k in (list(kinds) if rnd == 0 else list(kinds)[::-1]):
+                best[p, k] = min(best[p, k], kinds[k](*scenes[p, "default"]))
+    phase("graph", f"ms/frame at 800x800, default config (host clock + synchronize, best of 2 in turns; bursts of "
+          f"{N_GRAPH_TIMED} closed by the checksums' fetch, host loops of {N_GRAPH_TIMED} Scene.render-style "
+          "frames with new camera and light each): " + "; ".join(
+              f"{p} " + " / ".join(f"{k} {best[p, k]:.3f}" for k in kinds) for p in PIPELINE_ORDER)
+          + f"  [{smi}]")
+
+    # The profiler over replayed bursts: idle share, and each mode's kernel
+    # time inside the graph.
+    graph_ms, shadow_sc = {}, scenes["shadow", "default"][0]
+    for mode, (knobs, inst) in GRAPH_MODES.items():
+        # Each graph is captured and replayed once before the trace: the
+        # trace holds replays of a graph already on the device.
+        if mode == "camera z+idx":
+            run, n = shadow_sc.render, 4
+        else:
+            sc = shadow_sc if not knobs else Scene(model, "shadow", RenderConfig(**knobs), device=dev)
+            fn = make_burst_fn("shadow", sc.config)
+            run = (lambda fn=fn, sc=sc: fn(sc._geom, sc._textures, cams[:N_GRAPH_TIMED], ligs[:N_GRAPH_TIMED]))
+            n = N_GRAPH_TIMED
+        run()
+        events, busy, span = trace_kernels(run, dev)
+        if inst == "fused":
+            durs = [ms for name, cat, ms in events if cat == "kernel" and K2_TRACE.search(name)]
+        else:
+            durs = [ms for name, cat, ms in events if cat == "kernel" and (m := K1_TRACE.search(name))
+                    and m.groups() == inst]
+        graph_ms[mode] = float(np.mean(durs)) if durs else None
+        kernels = sum(cat == "kernel" for _, cat, _ in events)
+        phase("graph", f"profiler over {n} replayed shadow {'Scene.render' if mode == 'camera z+idx' else 'burst'}"
+              f" frames ({knobs or 'default config'}): {kernels} GPU kernels, "
+              f"{len(events) - kernels} copies/fills, device busy {busy:.3f} ms of a {span:.3f} ms span "
+              f"({1 - busy / span if span else float('nan'):.1%} idle); {mode}: {len(durs)} launches, "
+              + (f"{graph_ms[mode]:.4f} ms per launch inside the graph" if durs else "not in the trace")
+              + f"  [{smi}]")
+    return graph_ms
+
+
 def profile_phase(dev, config, smi, shadow_scene):
-    """Phase 11: the CLI's --profile trace (torch.profiler), the device's busy
+    """Phase 12: the CLI's --profile trace (torch.profiler), the device's busy
     and idle share in it, and the shadow frame by the stage profile before
     and after the profiler ran in this process.  Last, so that no other
     measurement follows the profiler in the process."""
@@ -727,10 +1000,12 @@ def profile_phase(dev, config, smi, shadow_scene):
     after = stage_breakdown(shadow_scene, iters=24)[1]["full"]
     phase("profile", f"app.main -s shadow --frames 4 --profile: rc 0; trace {len(events)} events, {kernels} "
           f"GPU kernels and {len(gpu) - kernels} copies/fills, device busy {busy:.3f} ms of a {span:.3f} ms "
-          f"span ({1 - busy / span:.1%} idle; 4 frames, profiler on); shadow frame by the stage profile "
-          f"(24 frames, CUDA events | host ms per frame) {before['device']:.3f} | {before['host']:.3f} "
-          f"before the profiler ran in this process, {after['device']:.3f} | {after['host']:.3f} "
-          f"after  [{smi}]")
+          f"span ({1 - busy / span:.1%} idle; 4 frames of Scene.render, the first capturing its graph, "
+          f"profiler on); shadow frame by the stage profile (24 frames, CUDA events | host ms per frame, "
+          f"eager || replayed graph) {before['device']:.3f} | {before['host']:.3f} || "
+          f"{before['graph_device']:.3f} | {before['graph_host']:.3f} before the profiler ran in this process, "
+          f"{after['device']:.3f} | {after['host']:.3f} || {after['graph_device']:.3f} | "
+          f"{after['graph_host']:.3f} after  [{smi}]")
 
 
 BENCH_FRAMES = 16  # the in-process bench_config
@@ -753,7 +1028,7 @@ def run_bench(*args):
 
 
 def bench_phase(dev, smi, record):
-    """Phase 12: the bench harness, in process (checked against
+    """Phase 13: the bench harness, in process (checked against
     render_burst) and as the command a user runs (fresh processes)."""
     from tiny_renderer_tpu_torch import RenderConfig, Scene, bench
     from tiny_renderer_tpu_torch.convert import to_tensor
@@ -766,8 +1041,10 @@ def bench_phase(dev, smi, record):
     torch.cuda.synchronize()
     counts = dict(raster_cuda.LAUNCHES)
     record("bench", counts)
-    # Bursts of 8, n, 8, n frames, then 1 + min(frames, 20) Scene.render: 2 K1 each.
-    want_launches = 2 * (2 * (8 + BENCH_FRAMES) + 1 + min(BENCH_FRAMES, 20))
+    # Bursts of 8, n, 8, n frames, then 1 + min(frames, 20) Scene.render, and
+    # the warm-up frame of each of the two captures (burst and Scene.render):
+    # 2 K1 each.
+    want_launches = 2 * (2 * (8 + BENCH_FRAMES) + 1 + min(BENCH_FRAMES, 20) + 2)
     check(counts["raster"] == want_launches and counts["fused"] == 0,
           f"bench_config launched {counts}, expected {want_launches} K1")
     check(not r["overflow"].any(), f"the bench's burst overflowed: {r['overflow']}")
@@ -840,7 +1117,7 @@ def write_tga(path, rgb, rle=False):
 
 
 def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagship):
-    """Phase 10: the capacity scale.  The flagship stand-in is written to a
+    """Phase 11: the capacity scale.  The flagship stand-in is written to a
     temporary directory (model.obj and four TGAs, the texture RLE-coded),
     loaded by load_model on the native path and subdivided twice (81,536
     triangles).  K1 idx-only, depth-only and z+idx at capacity (int32 index
@@ -860,12 +1137,14 @@ def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagshi
     from tiny_renderer_tpu_torch.ops import raster_cuda
     from tiny_renderer_tpu_torch.ops.binning import bin_triangles
     from tiny_renderer_tpu_torch.ops.mathlib import F32_MIN
-    from tiny_renderer_tpu_torch.pipelines.frame import _band_plan, _idx_dtype, make_burst_fn
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.pipelines.frame import _band_plan, _idx_dtype, make_burst_fn, render_frame
     from tiny_renderer_tpu_torch.utils.png import png_bytes
 
     t0 = time.perf_counter()
     cfg = base.resolve("shadow")
     W, H = cfg.width, cfg.height
+    view = [to_tensor(np.float32(v), dev) for v in VIEW]
 
     # -- (a) the native loader, and the capacity scene --
     try:
@@ -986,12 +1265,13 @@ def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagshi
             torch.cuda.synchronize()
             got_burst = dict(raster_cuda.LAUNCHES)
             label = f"{pipeline} row_bands={rb}" + (" fuse_passes" if knobs else "")
+            # Per frame; each first call adds its capture's warm-up frame.
             want = {"raster": n_pass * R, "offset": n_pass * (R - 1)}
-            check(got_render == {m: want.get(m, 0) for m in got_render},
-                  f"capacity {label}: Scene.render launches {got_render}, expected {want}")
-            want = {"fused": 2} if knobs and R == 1 else {m: 2 * v for m, v in want.items()}
-            check(got_burst == {m: want.get(m, 0) for m in got_burst},
-                  f"capacity {label}: burst launches {got_burst}, expected {want}")
+            check(got_render == {m: 2 * want.get(m, 0) for m in got_render},
+                  f"capacity {label}: Scene.render launches {got_render}, expected 2 x {want}")
+            want = {"fused": 1} if knobs and R == 1 else want
+            check(got_burst == {m: 3 * want.get(m, 0) for m in got_burst},
+                  f"capacity {label}: burst launches {got_burst}, expected 3 x {want}")
             path = f"{pipeline}, capacity"
             for counts in (got_render, got_burst):
                 record(path, counts)
@@ -1003,7 +1283,7 @@ def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagshi
             if one is None:
                 one = (r, bo)
                 with twin[0], twin[1]:
-                    tr = sc.render()
+                    tr = render_frame(sc._geom, sc._textures, *view, pipeline=pipeline, config=sc.config)
                 for k in ("frame", "z", "shadow"):
                     check(torch.equal(tr[k], r[k]), f"capacity {label}: Scene.render {k} differs from the twin")
             else:
@@ -1157,7 +1437,7 @@ def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagshi
 
 
 def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16):
-    """Phase 7: the scale-out path (parallel.sharding) at 800x800.  First
+    """Phase 8: the scale-out path (parallel.sharding) at 800x800.  First
     every kernel mode on a band of tile rows at a nonzero row offset, bit
     for bit against its twin and against the same rows of the full-frame
     launch; then the sharded frames of the flagship shadow scene on 5 row
@@ -1446,15 +1726,18 @@ def main() -> int:
     from tiny_renderer_tpu_torch.ops import raster_cuda, raster_probe
     from tiny_renderer_tpu_torch.ops.binning import bin_triangles
     from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
-    from tiny_renderer_tpu_torch.pipelines.frame import make_burst_fn, render_frame
+    from tiny_renderer_tpu_torch.pipelines.frame import _render_burst_eager, make_burst_fn, render_frame
     from tiny_renderer_tpu_torch.pipelines.shaders import kernel_varying_spec, num_planes
 
     clock = [time.perf_counter()]
 
     def lap(name):
-        """Print the seconds since the previous phase ended."""
+        """Print the seconds since the previous phase ended and the most
+        device memory the caching allocator reserved during it."""
         now = time.perf_counter()
-        phase(name, f"took {now - clock[0]:.1f} s")
+        phase(name, f"took {now - clock[0]:.1f} s; max memory reserved "
+              f"{torch.cuda.max_memory_reserved() / 2**30:.2f} GiB")
+        torch.cuda.reset_peak_memory_stats()
         clock[0] = now
 
     dev = torch.device(DEVICE, 0)
@@ -1665,6 +1948,9 @@ def main() -> int:
             if n:
                 mode_paths[k][path] = mode_paths[k].get(path, 0) + n
 
+    # Each first call captures a CUDA graph: one eager warm-up frame (its
+    # launches count), then the replays (each counts the launches its
+    # capture recorded).
     raster_cuda.reset_launches()
     out1 = scene.render()
     after_render = dict(raster_cuda.LAUNCHES)
@@ -1672,9 +1958,10 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = dict(raster_cuda.LAUNCHES)
     launches = counts["raster"]
-    check(after_render["raster"] == 2, f"Scene.render made {after_render['raster']} kernel launches, expected 2")
-    check(launches - after_render["raster"] == 2 * N_FRAMES,
-          f"burst made {launches - after_render['raster']} kernel launches, expected {2 * N_FRAMES}")
+    check(after_render["raster"] == 2 * 2,
+          f"Scene.render made {after_render['raster']} kernel launches, expected 4 (warm-up + replay)")
+    check(launches - after_render["raster"] == 2 * (N_FRAMES + 1),
+          f"burst made {launches - after_render['raster']} kernel launches, expected {2 * (N_FRAMES + 1)}")
     check(all(v == 0 for k, v in counts.items() if k != "raster"), f"default path launched {counts}")
     record("shadow", counts)
     frames = out["frames"]
@@ -1686,9 +1973,11 @@ def main() -> int:
     check(out1["z"] is not None and out1["z"].shape == (cfg.height, cfg.width), "Scene.render z")
     check(bool(torch.isfinite(out1["z"][out1["z"] > ml.F32_MIN]).all()), "non-finite z")
 
+    # The eager frames with the twin raster: the replayed graphs against them.
     with mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference):
-        twin_out = burst(geom, textures, cams, ligs)
-        twin_render = scene.render()
+        twin_out = _render_burst_eager(geom, textures, cams, ligs, pipeline="shadow", config=scene.config,
+                                       keep_frames=True)
+        twin_render = render_frame(geom, textures, *view, pipeline="shadow", config=scene.config)
     check(raster_cuda.LAUNCHES == counts, "the twin burst launched a kernel")
     check(torch.equal(twin_out["frames"], frames), "burst frames differ from the twin-raster burst")
     check(torch.equal(twin_out["checksums"], out["checksums"]), "burst checksums differ")
@@ -1704,9 +1993,10 @@ def main() -> int:
     shadow_diff = int(((cpu["shadow"] > ml.F32_MIN) != (out1["shadow"].cpu() > ml.F32_MIN)).sum())
     check(frame_diff < 0.005, f"GPU frame differs from the CPU frame on {frame_diff:.4%} of pixels")
     phase("slice", f"Scene.render + {N_FRAMES}-frame {cfg.width}x{cfg.height} shadow burst of "
-          f"{model.num_triangles} triangles: {launches} kernel launches "
-          f"({2 * N_FRAMES} in the burst), lit share {min(lit.tolist()):.4f}-{max(lit.tolist()):.4f}, "
-          f"frames bit-identical to the twin raster; vs the CPU frame: {frame_diff:.6%} of pixels "
+          f"{model.num_triangles} triangles, each a replayed CUDA graph: {launches} kernel launches "
+          f"({2 * (N_FRAMES + 1)} in the burst, its capture's warm-up frame included), lit share "
+          f"{min(lit.tolist()):.4f}-{max(lit.tolist()):.4f}, "
+          f"frames bit-identical to the eager frames with the twin raster; vs the CPU frame: {frame_diff:.6%} of pixels "
           f"differ, shadow coverage differs on {shadow_diff} px")
     lap("slice")
 
@@ -1735,9 +2025,9 @@ def main() -> int:
         pout = pburst(psc._geom, psc._textures, pcams, pligs)
         torch.cuda.synchronize()
         got_burst = dict(raster_cuda.LAUNCHES)
-        want = {k: per_frame.get(k, 0) for k in got_render}
+        want = {k: 2 * per_frame.get(k, 0) for k in got_render}  # warm-up + replay
         check(got_render == want, f"{name}: Scene.render launches {got_render}, expected {want}")
-        want = {k: N_PIPE_FRAMES * v for k, v in want.items()}
+        want = {k: (N_PIPE_FRAMES + 1) * per_frame.get(k, 0) for k in got_render}
         check(got_burst == want, f"{name}: burst launches {got_burst}, expected {want}")
         record(name, got_render)
         record(name, got_burst)
@@ -1748,8 +2038,9 @@ def main() -> int:
         check(not bool(pout["overflow"].any()) and not psc.overflowed, f"{name}: a frame overflowed")
         check(bool(torch.isfinite(r1["z"][r1["z"] > ml.F32_MIN]).all()), f"{name}: non-finite z")
         with twin[0], twin[1]:
-            tout = pburst(psc._geom, psc._textures, pcams, pligs)
-            trender = psc.render()
+            tout = _render_burst_eager(psc._geom, psc._textures, pcams, pligs, pipeline=name,
+                                       config=psc.config, keep_frames=True)
+            trender = render_frame(psc._geom, psc._textures, *view, pipeline=name, config=psc.config)
         check(raster_cuda.LAUNCHES == got_burst, f"{name}: the twin burst launched a kernel")
         check(torch.equal(tout["frames"], pframes), f"{name}: burst frames differ from the twin-raster burst")
         check(torch.equal(tout["checksums"], pout["checksums"]), f"{name}: burst checksums differ")
@@ -1762,9 +2053,10 @@ def main() -> int:
         check(pdiff < 0.005, f"{name}: GPU frame differs from the CPU frame on {pdiff:.4%} of pixels")
         pipe_runs[name] = (pburst, psc, pframes)
         phase("pipelines", f"{name}: Scene.render {got_render['raster']} + burst {got_burst['raster']} "
-              f"K1 launches ({per_frame['raster']} per frame), lit share {min(plit.tolist()):.4f}-"
-              f"{max(plit.tolist()):.4f}, render and {N_PIPE_FRAMES}-frame burst bit-identical to the "
-              f"twin raster; vs the CPU frame {pdiff:.6%} of pixels differ")
+              f"K1 launches ({per_frame['raster']} per frame, a warm-up frame per capture), lit share "
+              f"{min(plit.tolist()):.4f}-{max(plit.tolist()):.4f}, replayed render and {N_PIPE_FRAMES}-frame "
+              f"burst bit-identical to the eager frames with the twin raster; vs the CPU frame {pdiff:.6%} "
+              "of pixels differ")
     lap("pipelines")
 
     # -- 6. knobs -------------------------------------------------------------
@@ -1778,7 +2070,7 @@ def main() -> int:
         torch.cuda.synchronize()
         got = dict(raster_cuda.LAUNCHES)
         record("shadow", got)
-        want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+        want = {k: (N_KNOB_FRAMES + 1) * per_frame.get(k, 0) for k in got}  # + the capture's warm-up
         check(got == want, f"knob {name}: launches {got}, expected {want}")
         check(torch.equal(kout["frames"], frames[:N_KNOB_FRAMES]),
               f"knob {name}: burst frames differ from the default burst")
@@ -1791,7 +2083,8 @@ def main() -> int:
             kr = kscene.render()
             torch.cuda.synchronize()
             got = dict(raster_cuda.LAUNCHES)
-            check(got["raster"] == 2 and got["planes"] == 1, f"fullplane Scene.render launches {got}")
+            check(got["raster"] == 4 and got["planes"] == 2, f"fullplane Scene.render launches {got} "
+                  "(warm-up + replay)")
             for k in ("frame", "z", "shadow"):
                 check(torch.equal(kr[k], out1[k]), f"fullplane Scene.render {k} differs from the default")
             msg += f"; Scene.render z, frame, shadow equal to the default (launches {got})"
@@ -1805,7 +2098,7 @@ def main() -> int:
             torch.cuda.synchronize()
             got = dict(raster_cuda.LAUNCHES)
             record(pname, got)
-            want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+            want = {k: (N_KNOB_FRAMES + 1) * per_frame.get(k, 0) for k in got}
             check(got == want, f"{pname} knob {name}: launches {got}, expected {want}")
             check(torch.equal(kout["frames"], pipe_runs[pname][2][:N_KNOB_FRAMES]),
                   f"{pname} knob {name}: burst frames differ from the pipeline's default burst")
@@ -1828,7 +2121,7 @@ def main() -> int:
         torch.cuda.synchronize()
         got = dict(raster_cuda.LAUNCHES)
         record("darboux", got)
-        want = {k: N_KNOB_FRAMES * per_frame.get(k, 0) for k in got}
+        want = {k: (N_KNOB_FRAMES + 1) * per_frame.get(k, 0) for k in got}
         check(got == want, f"darboux mixed maps {name}: launches {got}, expected {want}")
         mixed[name] = mout["frames"]
     check(torch.equal(mixed["fullplane"], mixed["default"]),
@@ -1838,12 +2131,16 @@ def main() -> int:
           "(15-plane reference spec) bit-identical to the strip shade (per-map samplers)")
     lap("knobs")
 
-    # -- 7. parallel ----------------------------------------------------------
+    # -- 7. graph -------------------------------------------------------------
+    graph_ms = graph_phase(dev, model, pmodel, smi, record)
+    lap("graph")
+
+    # -- 8. parallel ----------------------------------------------------------
     par_ms, par_bounds = parallel_phase(dev, model, RenderConfig(), smi, record, passes, compare, cases,
                                         specs["planes-tex16"])
     lap("parallel")
 
-    # -- 8. timing ------------------------------------------------------------
+    # -- 9. timing ------------------------------------------------------------
     def timed(key, label, kernel, twin):
         """(kernel ms paced by the host, twin ms, kernel ms on the device)."""
         ms = (time_launches(kernel, 200), time_launches(twin, 5), time_launches(kernel, 200, hold=True))
@@ -1924,10 +2221,11 @@ def main() -> int:
 
     burst_times = in_turns({"default": (burst, scene), **knob_bursts})
     with mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference):
-        burst_twin = burst_ms(burst, scene, 1)
+        burst_twin = burst_ms(lambda *a: _render_burst_eager(*a, pipeline="shadow", config=scene.config),
+                              scene, 1)
     phase("timing", "shadow burst ms/frame (host clock, best of 4 bursts of "
           f"{N_FRAMES}, configs in turns): " + ", ".join(f"{k} {v:.3f}" for k, v in burst_times.items())
-          + f"; default with the twin raster {burst_twin:.3f}  [{smi}]")
+          + f"; default eager with the twin raster {burst_twin:.3f}  [{smi}]")
     pipe_times = in_turns({p: (burst, scene) if p == "shadow" else pipe_runs[p][:2] for p in PIPELINE_ORDER})
     phase("timing", "burst ms/frame by pipeline, default config (host clock, best of 4 bursts of "
           f"{N_FRAMES}, pipelines in turns): " + ", ".join(f"{k} {v:.3f}" for k, v in pipe_times.items())
@@ -1975,20 +2273,20 @@ def main() -> int:
               f"the device)  [{smi}]")
     lap("timing")
 
-    # -- 9. entry -------------------------------------------------------------
+    # -- 10. entry -------------------------------------------------------------
     entry_phase(dev, model, RenderConfig(), smi, record, twin, pcams, pligs, scene,
                 pipe_runs["default"][1])
     lap("entry")
 
-    # -- 10. capacity ---------------------------------------------------------
+    # -- 11. capacity ---------------------------------------------------------
     cap_ms, cap_bounds = capacity_phase(dev, model, RenderConfig(), smi, record, passes, compare, grid, scene)
     lap("capacity")
 
-    # -- 11. profile ----------------------------------------------------------
+    # -- 12. profile ----------------------------------------------------------
     profile_phase(dev, RenderConfig(), smi, scene)
     lap("profile")
 
-    # -- 12. bench ------------------------------------------------------------
+    # -- 13. bench ------------------------------------------------------------
     bench_phase(dev, smi, record)
     lap("bench")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
@@ -2024,6 +2322,15 @@ def main() -> int:
     def by_pipeline(mode):
         return dict(mode_paths[mode])
 
+    # Device ms per launch inside a replayed graph (graph phase; the depth
+    # row per frame: its two launches), null where no graph phase trace
+    # holds the mode.
+    in_graph = {k: graph_ms.get(m) for k, m in (("gathered", "gathered"), ("int16", "int16"),
+                                                  ("strips", "strips"), ("planes", "planes"),
+                                                  ("fused", "fused"))}
+    if graph_ms.get("light z") is not None and graph_ms.get("camera idx") is not None:
+        in_graph["depth"] = graph_ms["light z"] + graph_ms["camera idx"]
+
     for name, _r, _k, mode, _t in entries:
         check(mode_paths[mode], f"{name}: no path launched it")
 
@@ -2031,7 +2338,7 @@ def main() -> int:
         "name": name, "route": "cuda", "source": src, "replaces": replaces,
         "launches": sum(mode_paths[mode].values()), "launches_by_pipeline": by_pipeline(mode),
         "pipelines": list(by_pipeline(mode)), "max_abs_err": err[key], "ms": t[0], "device_ms": t[2],
-        "plain_ms": t[1], "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
+        "graph_device_ms": in_graph.get(key), "plain_ms": t[1], "bound_ms": bounds[key][0], "bound_by": bounds[key][1], "library_ms": None,
     } for name, replaces, key, mode, t in entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)

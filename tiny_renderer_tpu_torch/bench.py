@@ -8,11 +8,13 @@ to stderr, one line per config:
 
 - ``ms_per_frame``: the marginal cost of a frame between an 8-frame and an
   n-frame ``render_burst`` (checksums fetched to the host, then the device
-  synchronized), as the JAX bench takes it.  The port's burst is a Python
-  loop with one host sync per frame, so the marginal includes the host's
-  per-frame work and lies close to the host-loop time.
-- ``ms_per_frame_hostloop``: ``Scene.render`` per frame with new camera and
-  light state each time, closed by a synchronize and a one-pixel fetch.
+  synchronized), as the JAX bench takes it.  On a GPU the burst replays
+  one captured CUDA graph per frame with no host sync, so, as in JAX, the
+  marginal cancels the fixed cost of a burst (its capture happens in the
+  warm-up bursts).
+- ``ms_per_frame_hostloop``: ``Scene.render`` (a replayed graph on a GPU)
+  per frame with new camera and light state each time, closed by a
+  synchronize and a one-pixel fetch.
 - ``blit_ms``: ``Scene.get_frame_buffer()``, the frame to the host.
 
 The line ends with the timed burst's overflowed frames (a binning cap was

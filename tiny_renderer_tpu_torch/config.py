@@ -38,8 +38,8 @@ class RenderConfig:
     # Specular pipeline constant (shader.rs:521).
     specular_scale: float = 0.6
 
-    # Collapse duplicate shadow-map indices in the occlusion probe (JAX only:
-    # exact, so the port's plain gather renders the same frame either way).
+    # Collapse duplicate shadow-map indices in the occlusion probe
+    # (shaders.dedup_gather; exact, the same frame either way).
     occlusion_dedup: bool = False
 
     # Raster screen tile: the unit of binning (the port's kernel splits it
@@ -73,8 +73,8 @@ class RenderConfig:
     strip_pack_words: bool = True
     # Strip-compacted shading of covered strip_len-pixel strips.
     compact_shade: bool = True
-    # Strips per shade batch in the JAX while_loop; the port shades every
-    # covered strip in one batch (same pixels).
+    # Strips per shade batch in the JAX while_loop; the port's strip shade
+    # has ceil(strips / strip_batch) * strip_batch slots, shaded in one batch.
     strip_batch: int = 512
     # Kernel-interpolated varying planes for the strip shade (K1 phase 2).
     strip_planes: bool = False

@@ -164,10 +164,7 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
         & (dx[None, None, :] <= span_x[:, None, None])
     )
     tri_ids = torch.arange(T, dtype=torch.int32, device=dev)
-    key = torch.where(
-        ok, tile * K + tri_ids[:, None, None],
-        torch.tensor(_SENTINEL, dtype=torch.int32, device=dev),
-    )
+    key = torch.where(ok, tile * K + tri_ids[:, None, None], _SENTINEL)
     total = ok.sum()
     if config.binning_compact:
         # Compact the real incidences (triangle-major; tail dropped on cap

@@ -21,6 +21,8 @@ row-major float32 tensors.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -36,6 +38,15 @@ def f32(x) -> float:
     """A Python float holding the float32 rounding of x (a scalar operand
     that torch applies to a float32 tensor without further rounding)."""
     return float(np.float32(x))
+
+
+@functools.lru_cache(maxsize=256)
+def const(values, device, dtype=torch.float32):
+    """A constant tensor of `values` (nested tuples of Python numbers) on
+    `device`, copied there once and shared by every caller, who must not
+    write to it.  A copy from host memory cannot be captured into a CUDA
+    graph; a constant that a warm-up run built is only read there."""
+    return torch.tensor(values, dtype=dtype).to(device)
 
 
 # ---------------------------------------------------------------------------
@@ -252,8 +263,8 @@ def camera_matrices(width, height, depth, projection_coef, look_from, look_at, u
         ],
         dtype=np.float32,
     )
-    projection = torch.from_numpy(projection).to(dev)
-    viewport = torch.from_numpy(viewport).to(dev)
+    projection = const(tuple(map(tuple, projection.tolist())), dev)
+    viewport = const(tuple(map(tuple, viewport.tolist())), dev)
 
     # nalgebra evaluates viewport * projection * model * view left-to-right.
     vpmv = mat4_mul(mat4_mul(mat4_mul(viewport, projection), model), view)
@@ -322,7 +333,7 @@ def rotation_between(a, b):
         dim=-2,
     )
     eye = torch.eye(3, dtype=torch.float32, device=a.device)
-    flip_x = torch.diag(torch.tensor([1.0, -1.0, -1.0], dtype=torch.float32, device=a.device))
+    flip_x = const(((1.0, 0.0, 0.0), (0.0, -1.0, 0.0), (0.0, 0.0, -1.0)), a.device)
     aligned = torch.where((d >= 0.0)[..., None, None], eye, flip_x)
     return torch.where((norm_c > eps)[..., None, None], rot, aligned)
 

@@ -21,17 +21,21 @@ True)``).  ``LAUNCHES`` counts kernel launches by mode: ``raster`` (every K1
 launch), ``fused`` (every K2 launch), ``gathered``, ``int16``, ``strips``,
 ``planes`` (the launches that ran that mode), and ``offset`` and
 ``fused_offset`` (the K1 and K2 launches at a nonzero row_tile_offset: the
-row shards of parallel.sharding).
+row shards of parallel.sharding).  A launch made while a CUDA graph is
+captured (``recording``) runs only when the graph is replayed: it is
+counted at each replay (``replayed``), not at the capture.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
 import os
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -62,9 +66,37 @@ SUBTILE = (8, 32)
 _EXACT_SPAN = 2.0 ** 23  # csrc/raster.cu kExactSpan
 
 
+_CAPTURE = threading.local()  # .counts: the launches of the capture under way in this thread
+
+
 def reset_launches():
     """Set every LAUNCHES count to 0."""
     LAUNCHES.update(dict.fromkeys(LAUNCHES, 0))
+
+
+@contextlib.contextmanager
+def recording():
+    """Around the capture of a CUDA graph: the launches this thread makes
+    inside are recorded into the graph, not run, so they go into the dict
+    this yields instead of LAUNCHES.  Pass it to replayed() at each replay."""
+    counts = dict.fromkeys(LAUNCHES, 0)
+    _CAPTURE.counts = counts
+    try:
+        yield counts
+    finally:
+        _CAPTURE.counts = None
+
+
+def replayed(counts):
+    """Count one replay of a graph whose capture recorded `counts`."""
+    for k, n in counts.items():
+        LAUNCHES[k] += n
+
+
+def _counts():
+    """Where a launch is counted: the capture under way, else LAUNCHES."""
+    counts = getattr(_CAPTURE, "counts", None)
+    return LAUNCHES if counts is None else counts
 
 
 def _nvcc() -> str:
@@ -283,12 +315,13 @@ def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile
             _ptr(varys), len(planes), desc, stream,
         )
     _raise_on(err, lib, "raster_depth")
-    LAUNCHES["raster"] += 1
-    LAUNCHES["gathered"] += tris is None
-    LAUNCHES["int16"] += idx is not None and idx_t == torch.int16
-    LAUNCHES["strips"] += emit_strips > 0
-    LAUNCHES["planes"] += bool(planes)
-    LAUNCHES["offset"] += row_tile_offset != 0
+    counts = _counts()
+    counts["raster"] += 1
+    counts["gathered"] += tris is None
+    counts["int16"] += idx is not None and idx_t == torch.int16
+    counts["strips"] += emit_strips > 0
+    counts["planes"] += bool(planes)
+    counts["offset"] += row_tile_offset != 0
     return z, idx, varys, strips
 
 
@@ -313,9 +346,10 @@ def _launch_fused(rec1, tris1, starts1, rec2, tris2, starts2, *, tile_h, tile_w,
             shadow_z.data_ptr(), idx.data_ptr(), stream,
         )
     _raise_on(err, lib, "raster_fused")
-    LAUNCHES["fused"] += 1
-    LAUNCHES["gathered"] += tris1 is None
-    LAUNCHES["fused_offset"] += row_tile_offset != 0
+    counts = _counts()
+    counts["fused"] += 1
+    counts["gathered"] += tris1 is None
+    counts["fused_offset"] += row_tile_offset != 0
     return shadow_z, idx
 
 

@@ -49,7 +49,6 @@ def rasterize_dense(setup, height, width, tri_block=64, y_offset=0):
     )
     z_cur = torch.full((height, width), F32_MIN, dtype=torch.float32, device=dev)
     i_cur = torch.full((height, width), -1, dtype=torch.int32, device=dev)
-    neg_inf = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
     for t0 in range(0, T, B):
         blk = slice(t0, min(t0 + B, T))
 
@@ -75,7 +74,7 @@ def rasterize_dense(setup, height, width, tri_block=64, y_offset=0):
         w = 1.0 - (cxf + cyf) / czf
         zv = setup["zv"][blk, :, None, None]
         z = (w * zv[:, 0] + u * zv[:, 1]) + v * zv[:, 2]
-        z = torch.where(inside, z, neg_inf)
+        z = torch.where(inside, z, float("-inf"))
         # Within the block the first maximum (the lowest index) wins.
         k = torch.argmax(z, dim=0, keepdim=True)
         bz = torch.gather(z, 0, k)[0]

@@ -24,8 +24,12 @@ Custom pipelines join the seven through ``register_pipeline``, which
 writes the same tables the built-ins live in (``PIPELINES``,
 ``shaders.VARYING_SPECS``, ``shaders.PIPELINE_MAPS``, ``_GATHER_KEYS``).
 
-Everything runs eagerly on the device of the input tensors: CUDA tensors
-launch the CUDA raster kernels, CPU tensors run their plain torch twins.
+render_frame runs eagerly on the device of the input tensors: CUDA
+tensors launch the CUDA raster kernels, CPU tensors run their plain torch
+twins.  It reads no device value on the host, so on CUDA tensors
+render_frame_jit / make_frame_fn and render_burst / make_burst_fn capture
+it into a CUDA graph (pipelines.graphs) and replay that, as the JAX
+package runs its frame and burst as one compiled program each.
 ``backend="dense"`` (the JAX package's "jnp") replaces the binned raster
 with ``ops.raster_dense`` and the shade with the full-screen gather shade.
 The raster and shade helpers also take a window of rows (``rows``, ``y0``)
@@ -48,6 +52,7 @@ from ..ops.binning import _round_up, bin_triangles, compact_scatter, incidence_c
 from ..ops.raster_dense import rasterize_dense
 from ..ops.vertex import triangle_setup
 from . import shaders
+from .graphs import CapturedGraph, GraphCache, signature
 from .shaders import VARYING_SPECS, compute_varyings, kernel_varying_spec
 
 
@@ -499,23 +504,27 @@ def _shadow_for_shade(shadow_z, spec, config):
 
 def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
                   y_offset=0, strip_mask=None, planes=None, planes_spec=()):
-    """Strip-compacted shading: the shade runs only on covered
-    config.strip_len-pixel strips.
+    """Strip-compacted shading: the shade runs on config.strip_len-pixel
+    strips, the covered ones compacted to the front.
 
-    The JAX module walks the covered strips in fixed-size batches inside a
-    while_loop (static shapes for the TPU).  Here every covered strip is
-    shaded in one batch; the per-fragment math is elementwise, so the
-    pixels are identical.  Sizing that batch costs one host sync per frame
-    (the covered-strip count).
+    Static shapes and no host read, so that a frame can be captured into a
+    CUDA graph: the covered strips' ids are compacted (compact_scatter)
+    into ceil(n_strips / strip_batch) * strip_batch slots, JAX's batch
+    quantum, and the slots past the covered count hold the n_strips fill.
+    The JAX module walks the slots batch by batch in a while_loop that
+    stops after the covered count; here every slot is shaded in one batch,
+    the fill slots on a clamped strip, and their writes go to a spare row
+    that is cut off.  The per-fragment math is elementwise, so the pixels
+    are the JAX module's.
 
-    idx may be a row slab of the frame (parallel.sharding): y_offset is the
-    slab's first global row, so the pixel coords the shade sees are global
-    while the strips and the writeback stay slab-local.
+    idx may be a row slab of the frame (parallel.sharding): y_offset is
+    the slab's first global row, so the pixel coords the shade sees are
+    global while the strips and the writeback stay slab-local.
 
     strip_mask (config.strip_mask): the raster's (H, W/SL) per-strip max
     index, read instead of the full idx plane to find covered strips.
     planes/planes_spec (config.strip_planes): the raster's (P, H, W)
-    varying planes, whose covered strips replace the attribute gather and
+    varying planes, whose strips replace the attribute gather and
     compute_varyings (the kernel's interpolation is expression-identical).
     The writeback is one packed RGB word per pixel (config.strip_pack_words)
     or the u8 triples.  Returns the (H, W, 3) u8 frame, uncovered pixels
@@ -537,14 +546,15 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
         cov = strip_mask.reshape(-1) >= 0
     else:
         cov = (strips >= 0).any(dim=1)
-    count = int(cov.sum())  # the per-frame host sync
+    slots = -(-n_strips // config.strip_batch) * config.strip_batch
     ids = compact_scatter(
-        cov, torch.arange(n_strips, dtype=torch.int64, device=dev), n_strips, n_strips
-    )[:count]
+        cov, torch.arange(n_strips, dtype=torch.int64, device=dev), slots, n_strips
+    )
+    safe = ids.clamp(max=n_strips - 1)
 
-    sidx = strips[ids]  # (count, SL) winning-triangle ids
+    sidx = strips[safe]  # (slots, SL) winning-triangle ids
     lane = torch.arange(SL, device=dev)
-    base = (ids[:, None] * SL + lane[None, :]).clamp(max=HW - 1)
+    base = (safe[:, None] * SL + lane[None, :]).clamp(max=HW - 1)
     px = base % W
     py = base // W + y_offset
     if planes is None:
@@ -554,22 +564,23 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
         vflat = planes.reshape(planes.shape[0], -1)
         if pad:
             vflat = torch.nn.functional.pad(vflat, (0, pad))
-        varys = _unpack_planes(planes_spec, vflat.reshape(-1, n_strips, SL)[:, ids])
+        varys = _unpack_planes(planes_spec, vflat.reshape(-1, n_strips, SL)[:, safe])
     varys["x"] = px
     varys["y"] = py
     if spec.two_pass:
         varys["shadow_buffer"] = shadow_z
-    colors = spec.shade(varys, uniforms, textures, config)  # (count, SL, 3) u8
+    colors = spec.shade(varys, uniforms, textures, config)  # (slots, SL, 3) u8
     covered = sidx >= 0
+    # Row n_strips is the spare the fill slots write to.
     if not config.strip_pack_words:
-        acc = torch.zeros((n_strips, SL, 3), dtype=torch.uint8, device=dev)
+        acc = torch.zeros((n_strips + 1, SL, 3), dtype=torch.uint8, device=dev)
         acc[ids] = torch.where(covered[..., None], colors, 0).to(torch.uint8)
-        return acc.reshape(-1, 3)[:HW].reshape(H, W, 3)
+        return acc[:n_strips].reshape(-1, 3)[:HW].reshape(H, W, 3)
     c32 = colors.to(torch.int32)
     word = c32[..., 0] | (c32[..., 1] << 8) | (c32[..., 2] << 16)
-    acc = torch.zeros((n_strips, SL), dtype=torch.int32, device=dev)
+    acc = torch.zeros((n_strips + 1, SL), dtype=torch.int32, device=dev)
     acc[ids] = torch.where(covered, word, 0)
-    w = acc.reshape(-1)[:HW].reshape(H, W)
+    w = acc[:n_strips].reshape(-1)[:HW].reshape(H, W)
     return torch.stack([w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF], dim=-1).to(torch.uint8)
 
 
@@ -753,10 +764,60 @@ def _add_const_gather(frag, kspec, vspec, setup, idx):
         pos += comps
 
 
+# Captured frames and burst frames, keyed as JAX keys its jit caches.
+_GRAPHS = GraphCache()
+
+
+def _graph_key(kind, pipeline, config, backend, gen, geom, textures, inputs):
+    """The key of a captured graph: what JAX's jit keys on (pipeline, the
+    resolved config, backend, the registration generation), plus the
+    device, shapes, strides and dtypes of the inputs, and the addresses of
+    the geometry and texture tensors the graph reads in place."""
+    return (kind, pipeline, config, backend, gen, signature(geom), signature(textures),
+            signature(inputs, addresses=False))
+
+
+def _capture(kind, fn, inputs, pipeline, config, backend, gen, geom, textures):
+    """The cached graph of fn(*inputs) on the geometry and textures."""
+    key = _graph_key(kind, pipeline, config, backend, gen, geom, textures, inputs)
+    hold = tuple(geom.values()) + tuple(textures.values())
+    return _GRAPHS.get(key, lambda: CapturedGraph(
+        fn, inputs, f"the {kind} of pipeline {pipeline!r}", hold=hold))
+
+
+def render_frame_jit(geom, textures, light_direction, look_from, look_at, up, *, pipeline,
+                     config, backend="kernel", gen=0):
+    """render_frame (with the camera z) as one replayed CUDA graph: the
+    counterpart of JAX's render_frame_jit.
+
+    On CUDA tensors the frame is captured at its first call for a key
+    (_graph_key; `gen` is the pipeline's registration generation, so a
+    re-registered pipeline gets a graph of its own) and replayed after:
+    the four view vectors are copied into the graph's inputs, and the
+    outputs are cloned, so a later replay cannot overwrite what the caller
+    holds.  A capture that fails raises, naming the pipeline.  On CPU
+    tensors render_frame runs eagerly: the same code."""
+    views = (light_direction, look_from, look_at, up)
+    config = config.resolve(pipeline)
+    if light_direction.device.type != "cuda":
+        return render_frame(geom, textures, *views, pipeline=pipeline, config=config,
+                            backend=backend)
+
+    def fn(*v):
+        return render_frame(geom, textures, *v, pipeline=pipeline, config=config, backend=backend)
+
+    graph = _capture("frame", fn, views, pipeline, config, backend, gen, geom, textures)
+    with graph.lock:
+        out = graph(*views)
+        return {k: None if v is None else v.clone() for k, v in out.items()}
+
+
 def make_frame_fn(pipeline, config, backend="kernel"):
-    """fn(geom, textures, light_direction, look_from, look_at, up) -> dict."""
-    return functools.partial(render_frame, pipeline=pipeline, config=config.resolve(pipeline),
-                             backend=backend)
+    """fn(geom, textures, light_direction, look_from, look_at, up) -> dict:
+    render_frame_jit of the pipeline's resolved config at its current
+    registration generation."""
+    return functools.partial(render_frame_jit, pipeline=pipeline, config=config.resolve(pipeline),
+                             backend=backend, gen=registry_generation(pipeline))
 
 
 def frame_checksum(frame):
@@ -765,40 +826,82 @@ def frame_checksum(frame):
     return frame.sum(dtype=torch.int64) & 0xFFFFFFFF
 
 
+def _burst_frame(geom, textures, angles, *, pipeline, config, backend):
+    """One frame of a burst at angles = (camera angle, light angle), a (2,)
+    f32 tensor (src/app.rs:200-207), the camera z not emitted.  Returns its
+    (checksum, overflow) as a (2,) int64 tensor, and the frame."""
+    dev = angles.device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    look_from = torch.stack([torch.sin(angles[0]), zero, torch.cos(angles[0])])
+    light = torch.stack([torch.sin(angles[1]), zero, torch.cos(angles[1])])
+    out = render_frame(
+        geom, textures, light, look_from, ml.const((0.0, 0.0, 0.0), dev),
+        ml.const((0.0, 1.0, 0.0), dev), pipeline=pipeline, config=config, needs_z=False,
+        backend=backend,
+    )
+    return torch.stack([frame_checksum(out["frame"]), out["overflow"].to(torch.int64)]), out["frame"]
+
+
+def _render_burst_eager(geom, textures, camera_angles, light_angles, *, pipeline, config,
+                        keep_frames=False, backend="kernel"):
+    """render_burst's frames rendered eagerly one after another (its path
+    on CPU tensors; on CUDA tensors the eager side of the graph checks)."""
+    angles = torch.stack([camera_angles, light_angles], dim=1)
+    outs = [_burst_frame(geom, textures, a, pipeline=pipeline, config=config, backend=backend)
+            for a in angles]
+    stats = torch.stack([s for s, _ in outs])
+    result = {"checksums": stats[:, 0], "overflow": stats[:, 1].bool()}
+    if keep_frames:
+        result["frames"] = torch.stack([f for _, f in outs])
+    return result
+
+
 def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
-                 config, keep_frames=False, backend="kernel"):
+                 config, keep_frames=False, backend="kernel", gen=None):
     """Render an animation burst: one frame per (camera, light) orbit angle
     (src/app.rs:200-207), camera z-buffer not emitted.
 
     camera_angles/light_angles: (N,) f32 tensors on the render device.
     Returns dict with per-frame checksums (frame_checksum) and (N,)
     overflow flags and, if keep_frames, the stacked (N, H, W, 3) frames.
-    """
-    dev = camera_angles.device
-    look_at = torch.zeros(3, dtype=torch.float32, device=dev)
-    up = torch.tensor([0.0, 1.0, 0.0], dtype=torch.float32, device=dev)
-    zero = torch.zeros((), dtype=torch.float32, device=dev)
-    sums, ovfs, frames = [], [], []
-    for ca, la in zip(camera_angles, light_angles):
-        look_from = torch.stack([torch.sin(ca), zero, torch.cos(ca)])
-        light = torch.stack([torch.sin(la), zero, torch.cos(la)])
-        out = render_frame(
-            geom, textures, light, look_from, look_at, up,
-            pipeline=pipeline, config=config, needs_z=False, backend=backend,
-        )
-        sums.append(frame_checksum(out["frame"]))
-        ovfs.append(out["overflow"])
-        if keep_frames:
-            frames.append(out["frame"])
-    result = {"checksums": torch.stack(sums), "overflow": torch.stack(ovfs)}
+
+    On CUDA tensors one frame is captured as a CUDA graph (keyed as
+    render_frame_jit's; `gen` defaults to the pipeline's current
+    registration generation) and replayed N times, with no host sync:
+    per frame the host copies the two angles in, launches the graph and
+    copies the checksum and overflow (and the frame) out, all
+    asynchronously.  On CPU tensors the frames render eagerly."""
+    config = config.resolve(pipeline)
+    if camera_angles.device.type != "cuda":
+        return _render_burst_eager(geom, textures, camera_angles, light_angles, pipeline=pipeline,
+                                   config=config, keep_frames=keep_frames, backend=backend)
+    gen = registry_generation(pipeline) if gen is None else gen
+    angles = torch.stack([camera_angles, light_angles], dim=1)
+    n, dev = angles.shape[0], angles.device
+
+    def fn(a):
+        return _burst_frame(geom, textures, a, pipeline=pipeline, config=config, backend=backend)
+
+    graph = _capture("burst frame", fn, (angles[0],), pipeline, config, backend, gen, geom, textures)
+    stats = torch.empty((n, 2), dtype=torch.int64, device=dev)
+    frames = (torch.empty((n, config.height, config.width, 3), dtype=torch.uint8, device=dev)
+              if keep_frames else None)
+    with graph.lock:
+        for i in range(n):
+            stat, frame = graph(angles[i])
+            stats[i].copy_(stat, non_blocking=True)
+            if keep_frames:
+                frames[i].copy_(frame, non_blocking=True)
+    result = {"checksums": stats[:, 0], "overflow": stats[:, 1].bool()}
     if keep_frames:
-        result["frames"] = torch.stack(frames)
+        result["frames"] = frames
     return result
 
 
 def make_burst_fn(pipeline, config, keep_frames=False, backend="kernel"):
-    """fn(geom, textures, camera_angles, light_angles) -> render_burst dict."""
+    """fn(geom, textures, camera_angles, light_angles) -> render_burst dict,
+    at the pipeline's resolved config and current registration generation."""
     return functools.partial(
         render_burst, pipeline=pipeline, config=config.resolve(pipeline),
-        keep_frames=keep_frames, backend=backend,
+        keep_frames=keep_frames, backend=backend, gen=registry_generation(pipeline),
     )

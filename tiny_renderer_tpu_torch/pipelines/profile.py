@@ -15,9 +15,13 @@ Protocol: each prefix runs once to warm up, then `iters` times over
 slightly different camera/light angles.  On a GPU the run is timed twice:
 between two CUDA events (the device's span from the first launch to the
 last) and by the host clock up to a device synchronize; a host-bound frame
-shows the two close together.  On the CPU only the host clock exists.
-Prefixes are separate runs, so the deltas are attributions, not a
-schedule.
+shows the two close together.  On a GPU each prefix is then also captured
+as a CUDA graph (pipelines.graphs, the counterpart of the JAX module's
+_scan_prefix_fn: the prefix as one compiled program) and its replays over
+the same angles are timed the same two ways: the stage costs of the path
+that Scene, the bursts and the bench run.  On the CPU only the host clock
+of the eager prefixes exists.  Prefixes are separate runs, so the deltas
+are attributions, not a schedule.
 """
 
 from __future__ import annotations
@@ -29,6 +33,7 @@ from ..ops import mathlib as ml
 from ..ops.binning import bin_triangles
 from ..ops.vertex import triangle_setup
 from ..utils.timing import StageTimer
+from .graphs import CapturedGraph
 from .frame import (
     PIPELINES,
     _band_plan,
@@ -128,10 +133,13 @@ def stage_breakdown(scene, iters: int = 12):
     """Per-stage ms of a Scene's pipeline, config, raster backend and device.
 
     Returns (deltas, cumulative): dicts of stage (stages(scene.backend)) ->
-    {"host": ms, "device": ms, or None on the CPU}, per frame.  deltas
-    attribute each stage's share; deltas["uniforms"] is the part of the
-    vertex stage spent in the matrix stack, deltas["fetch"] the
-    device-to-host copy of one frame (Scene.get_frame_buffer)."""
+    {"host": ms, "device": ms, "graph_host": ms, "graph_device": ms}, per
+    frame: the eager prefix by the host clock and by CUDA events, and its
+    replayed CUDA graph the same two ways (every value but "host" None on
+    the CPU).  deltas attribute each stage's share; deltas["uniforms"] is
+    the part of the vertex stage spent in the matrix stack,
+    deltas["fetch"] the device-to-host copy of one frame
+    (Scene.get_frame_buffer, no graph)."""
     geom, textures = scene._geom, scene._textures
     pipeline, config, backend = scene.pipeline_name, scene.config, scene.backend
     _check_config(config, pipeline, backend)
@@ -152,20 +160,35 @@ def stage_breakdown(scene, iters: int = 12):
         return {"host": timer.totals[name] * 1e3 / n,
                 "device": start.elapsed_time(end) / n if cuda else None}
 
-    cumulative = {}
-    for stage in stages(backend):
-        fn = _prefix_fn(pipeline, config, stage, backend)
+    def eager(name, fn):
         fn(geom, textures, *views[0])  # warm-up
-        cumulative[stage] = clock(stage, lambda: [fn(geom, textures, *v) for v in views], iters)
+        t = clock(name, lambda: [fn(geom, textures, *v) for v in views], iters)
+        t["graph_host"] = t["graph_device"] = None
+        return t
 
-    fn = _prefix_fn(pipeline, config, "uniforms")
-    fn(geom, textures, *views[0])
-    uniforms = clock("uniforms", lambda: [fn(geom, textures, *v) for v in views], iters)
+    def replayed(name, fn, t):
+        graph = CapturedGraph(lambda *v: fn(geom, textures, *v), views[0],
+                              f"the {name} prefix of pipeline {pipeline!r}",
+                              hold=(*geom.values(), *textures.values()))
+        g = clock(f"{name} graph", lambda: [graph(*v) for v in views], iters)
+        t["graph_host"], t["graph_device"] = g["host"], g["device"]
+
+    fns = {stage: _prefix_fn(pipeline, config, stage, backend) for stage in stages(backend)}
+    fns["uniforms"] = _prefix_fn(pipeline, config, "uniforms")
+    # Every eager prefix first: a capture empties the allocator's cache,
+    # which an eager run timed after it would pay to refill.
+    times = {name: eager(name, fn) for name, fn in fns.items()}
+    if cuda:
+        for name, fn in fns.items():
+            replayed(name, fn, times[name])
+    uniforms = times.pop("uniforms")
+    cumulative = times
     scene.render()
     n_fetch = max(2, iters // 2)
     fetch = clock("fetch", lambda: [scene.get_frame_buffer() for _ in range(n_fetch)], n_fetch)
+    fetch["graph_host"] = fetch["graph_device"] = None
 
-    deltas, prev = {}, {"host": 0.0, "device": 0.0}
+    deltas, prev = {}, dict.fromkeys(uniforms, 0.0)
     for stage in cumulative:
         deltas[stage] = {k: None if v is None else v - prev[k] for k, v in cumulative[stage].items()}
         prev = cumulative[stage]
@@ -175,18 +198,23 @@ def stage_breakdown(scene, iters: int = 12):
 
 
 def print_stage_breakdown(scene, iters: int = 6, out=print):
-    """Print stage_breakdown: CUDA-event and host-clock ms per stage on a
-    GPU, host-clock ms on the CPU.  Returns the deltas."""
+    """Print stage_breakdown: on a GPU CUDA-event and host-clock ms per
+    stage, eager and replayed as a CUDA graph; host-clock ms on the CPU.
+    Returns the deltas."""
     deltas, cumulative = stage_breakdown(scene, iters)
     cuda = deltas["full"]["device"] is not None
     cfg = scene.config
     out(f"per-stage time of '{scene.pipeline_name}' at {cfg.width}x{cfg.height} on {scene.device} "
         f"({scene.backend} raster), "
         f"{iters} frames per prefix (cumulative-prefix deltas, ms per frame; "
-        + ("CUDA events | host clock):" if cuda else "host clock):"))
+        + ("CUDA events | host clock, eager || replayed CUDA graph):" if cuda else "host clock):"))
 
     def fmt(t):
-        return f"{t['device']:8.3f} | {t['host']:8.3f}" if cuda else f"{t['host']:8.3f}"
+        if not cuda:
+            return f"{t['host']:8.3f}"
+        graph = ("        - |        -" if t["graph_device"] is None
+                 else f"{t['graph_device']:8.3f} | {t['graph_host']:8.3f}")
+        return f"{t['device']:8.3f} | {t['host']:8.3f} || {graph}"
 
     for stage in stages(scene.backend):
         out(f"  {STAGE_LABELS[stage]:22s} {fmt(deltas[stage])} ms"

@@ -67,7 +67,7 @@ WHITE = (255, 255, 255)
 
 
 def _color(rgb, device):
-    return torch.tensor(rgb, dtype=torch.uint8, device=device)
+    return ml.const(rgb, device, torch.uint8)
 
 
 def num_planes(spec) -> int:
@@ -480,16 +480,15 @@ def occlusion_sample_coords(xf, yf, zfrag, uniforms, config):
     world = ml.mat4_transform_point(uniforms["i_vpmv"], p)
     sm = ml.mat4_mul(uniforms["shadow_matrix"], uniforms["i_vpmv"])
     fsc = ml.mat4_transform_point(sm, p)
-    rot = ml.rotation_between(
-        torch.tensor([0.0, 0.0, 1.0], dtype=torch.float32, device=light.device), light
-    )
+    rot = ml.rotation_between(ml.const((0.0, 0.0, 1.0), light.device), light)
 
     n = config.occlusion_samples
     angle_coef = np.float32(2.0 * np.pi) / np.float32(n)
     ang = [np.float32(angle_coef * np.float32(i)) for i in range(n)]
     dirs = np.array([[np.sin(a), 0.0, np.cos(a)] for a in ang], dtype=np.float32)
+    dirs = ml.const(tuple(map(tuple, dirs.tolist())), light.device)
     # All n samples at once: the same elementwise arithmetic per sample.
-    step = mat3_vec(rot, torch.from_numpy(dirs).to(light.device)) * ml.f32(config.occlusion_step)
+    step = mat3_vec(rot, dirs) * ml.f32(config.occlusion_step)
     sample = world + step.reshape(n, *([1] * (world.ndim - 1)), 3)  # (n, ..., 3)
     ssc = ml.mat4_transform_point(uniforms["shadow_matrix"], sample)
     return (torch.cat([ssc[..., 0], fsc[None, ..., 0]]),
@@ -512,19 +511,46 @@ def occlusion_update(svals, fval, config):
     return occ
 
 
+def dedup_gather(table, flat_idx, cap_shift=3):
+    """table[flat_idx] with equal indices fetched once (the JAX module's
+    dedup_gather, shaders.py:642-685).
+
+    The indices are sorted with their positions; the head of each run of
+    equal indices goes to one of cap = max(M >> cap_shift, 256) unique
+    slots (M indices), the table is read at those slots only, and each
+    position takes its run's value back through the sort permutation.
+    Where more than cap indices are unique, the plain gather's values are
+    taken instead: JAX's lax.cond on that flag is a torch.where here, so
+    the choice is made on the device (both sides are computed).  Equal
+    values either way."""
+    shape = flat_idx.shape
+    flat = flat_idx.reshape(-1).to(torch.int32)
+    M = flat.shape[0]
+    cap = max(M >> cap_shift, 256)
+    keys, pos = torch.sort(flat, stable=True)
+    first = torch.cat([torch.ones(1, dtype=torch.bool, device=flat.device), keys[1:] != keys[:-1]])
+    rank = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
+    overflow = rank[-1] >= cap
+    uniq = torch.zeros((cap + 1,), dtype=torch.int32, device=flat.device)
+    uniq[torch.where(first, rank, cap).clamp(max=cap).long()] = keys  # runs past the cap: the spare slot
+    fetched = table[uniq[:cap].long()]  # the one table-sized gather: cap rows
+    deduped = torch.empty((M,), dtype=table.dtype, device=table.device)
+    deduped[pos] = fetched[rank.clamp(max=cap - 1).long()]
+    return torch.where(overflow, table[flat.long()], deduped).reshape(shape)
+
+
 def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
     """The occlusion core (shader.rs:882-941) for any batch of fragments:
-    all n+1 shadow-buffer indices computed elementwise, then ONE gather.
-    config.occlusion_dedup (the JAX module's duplicate-collapsing gather,
-    exact by construction) changes no value and is not ported: the plain
-    gather serves either setting."""
+    all n+1 shadow-buffer indices computed elementwise, then ONE gather
+    (dedup_gather under config.occlusion_dedup: the same values)."""
     n = config.occlusion_samples
     sxs, sys = occlusion_sample_coords(xf, yf, zfrag, uniforms, config)
     flat = shadow_flat_indices(
         sxs, sys, shadow_buffer.shape, config.width,
         tile=plane_tile_effective(config, shadow_buffer.shape),
     )
-    vals = shadow_buffer.reshape(-1)[flat]  # (n+1, ...)
+    table = shadow_buffer.reshape(-1)
+    vals = dedup_gather(table, flat) if config.occlusion_dedup else table[flat]  # (n+1, ...)
     return occlusion_update(vals[:n], vals[n], config)
 
 

@@ -96,10 +96,16 @@ class Scene:
         self._up = np.asarray(up, np.float32)
 
     def render(self):
-        vecs = (self._light_direction, self._look_from, self._look_at, self._up)
-        self._out = self._frame_fn(
-            self._geom, self._textures, *(to_tensor(v, self.device) for v in vecs)
-        )
+        """Render a frame at the scene state (on CUDA the frame function's
+        replayed graph): dict(frame, z, shadow, overflow) on the device."""
+        vecs = np.stack([self._light_direction, self._look_from, self._look_at, self._up])
+        staged = torch.from_numpy(vecs)
+        if self.device.type == "cuda":
+            # One non-blocking copy from pinned memory: the host does not
+            # wait for the device (a pageable copy would).
+            staged = staged.pin_memory()
+        self._out = self._frame_fn(self._geom, self._textures,
+                                   *staged.to(self.device, non_blocking=True))
         return self._out
 
     def synchronize(self):
