@@ -87,23 +87,41 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              flagship shadow frame at 800x800 on 5 row shards of one card
              (make_row_mesh([cuda:0] * 5)) under the default config,
              fuse_passes, replicate_pass1, shard_triangles, needs_z=False
-             and strips + planes: frame, z, shadow and overflow
-             bit-identical to render_frame, with 5 K1 launches per pass per
-             frame (5 K2 under fuse_passes).  render_batch_sharded (phong,
-             4 frames, 2 x 5 mesh) and render_sequence_pipelined (shadow, 3
-             frames, 2 stages x 5 rows): every frame equal to its
-             single-device render.  The dense backend: coverage equal to
-             the kernel's on both passes, winners apart on < 0.2% of
-             pixels, the frame within 0.5% of the kernel frame, and on 8
-             shards of 100 rows bit-identical to the dense frame.  The
-             sharded example in process with its defaults: PNG bytes equal
-             to render_frame's.  Times: the sharded frame against the
-             single-device frame (in turns) and the dense frame (host
-             clock), the
-             banded K1 and K2 launches of one sharded frame (paced, twin,
-             device ms) beside their bound and the card's name and power
-             limit.
-9. timing  — kernel and twin ms per launch per mode at the flagship shapes
+             and strips + planes, replayed as segment graphs (captured at
+             the first call, one per segment between collectives): frame,
+             z, shadow and overflow bit-identical to the eager sharded
+             frame (the same segments run eagerly) and to render_frame at
+             two poses, the second capturing nothing, with 5 K1 launches
+             per pass per replay (5 K2 under fuse_passes) and
+             set_sync_debug_mode("error") silent around a replay.
+             render_batch_sharded (phong, 4 frames, 2 x 5 mesh) and
+             render_sequence_pipelined (shadow, 3 frames, 2 stages x 5
+             rows), replayed, at two sets of poses: every frame equal to
+             the eager path's and to its single-device render, launches
+             per frame as eager, sync debug mode silent.  The dense
+             backend: coverage equal to the kernel's on both passes,
+             winners apart on < 0.2% of pixels, the frame within 0.5% of
+             the kernel frame, and on 8 shards of 100 rows bit-identical
+             to the dense frame.  The sharded example in process with its
+             defaults: PNG bytes equal to render_frame's.  Times: capture
+             seconds and memory reserved per segment graph; the shadow
+             frame on one device and on 5 shards, eager and replayed (in
+             turns), and the dense frame (host clock); the batch and
+             pipelined ms per frame, eager and replayed; under
+             torch.profiler over replayed sharded frames, K1's and K2's
+             device ms inside the graphs; the banded K1 and K2 launches
+             of one sharded frame (paced, twin, device ms) beside their
+             bound and the card's name and power limit.
+9. fuzz    — seeded random knob compositions (tests/test_fuzz_configs.py's
+             _random_config draw, copied) on random scenes of 100
+             triangles at 800x800, one draw per pipeline and two that take
+             K2, each with the drawn span caps (binding: overflow flagged)
+             and with loose ones (no overflow allowed): the eager frame and
+             a 2-frame burst bit-identical to the same with the twins as
+             K1 and K2, the replayed frame (make_frame_fn) and burst
+             byte-equal to the eager ones at two poses, with the eager
+             launches per replay.
+10. timing  — kernel and twin ms per launch per mode at the flagship shapes
              (CUDA events around launches paced by the host, as the times
              before the redesign were taken, and the kernel's device time
              with the launch queue held full), beside those earlier times
@@ -114,7 +132,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              4-plane and 15-plane specs (paced, twin and device times)
              beside its bound;
              beside the card's name and power limit.
-10. entry  — the entry points above the frame path, each at 800x800 on the
+11. entry  — the entry points above the frame path, each at 800x800 on the
              flagship scene.  Registry: custom pipelines registered with
              register_pipeline — toon (one pass, uv + intensity), fog
              (two_pass, uv + zfrag, reads the shadow buffer) and glow (the
@@ -136,7 +154,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              angle, /healthz ok.  Prints the stage breakdown of shadow and
              default (CUDA-event and host ms per stage), ms per served
              request and interactive ms per frame.
-11. capacity — the capacity scale.  The flagship stand-in written to a
+12. capacity — the capacity scale.  The flagship stand-in written to a
              temporary directory (model.obj and four 1024^2 TGAs, the
              texture RLE-coded), loaded by load_model on the native path
              (assets/native.py, g++-built; the NumPy parsers patched to
@@ -156,13 +174,13 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              twin, device) beside their bounds, each pass's device ms, and
              the capacity frames (burst ms/frame and Scene.render latency)
              in turns with the flagship's shadow frame.
-12. profile — the CLI with --profile (torch.profiler): the trace's GPU
+13. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
              profiler ran (the last phase timed in this process: only the
              bench phase's check follows, and its times come from fresh
              processes).
-13. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
+14. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
              In process: bench_config for diablo/shadow at 800x800 with 16
              frames, its K1 launches counted, its timed burst's checksums
              bit-equal to render_burst's on the same angles and the same
@@ -224,6 +242,7 @@ KEY_SCRIPT = {0: [("press", "d")], 5: [("release", "d"), ("press", "q")],
 DEVICE = "cuda"
 ROOT = os.path.dirname(os.path.abspath(__file__))
 VIEW = ([0.3, 0.0, 0.95], [0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+VIEW2 = ([-0.45, 0.0, 0.89], [0.38, 0.15, 0.91], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])  # another light and camera
 MODES = {"z": dict(emit_z=True, emit_idx=False), "idx": dict(emit_z=False, emit_idx=True),
          "z+idx": dict(emit_z=True, emit_idx=True)}
 # A varying spec with every plane mode: interp (uv), const (row0, du), zfrag.
@@ -285,6 +304,7 @@ SHARD_CONFIGS = {
 }
 N_BATCH_FRAMES = 4
 N_PP_FRAMES = 3
+N_SHARD_TRACED = 4  # replayed sharded frames under the profiler
 DENSE_SHARDS = 8  # 8 x 100 rows: the dense backend has no tile grid
 
 PEAK_FLOPS = 67e12  # H100 SXM fp32 outside the tensor cores
@@ -497,7 +517,7 @@ def host_ms(fn, n):
 
 
 def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scene, default_scene):
-    """Phase 10: the entry points above the frame path (register_pipeline,
+    """Phase 11: the entry points above the frame path (register_pipeline,
     the CLI, the interactive loop, the frame server), every scene starting
     from `config`; launches are reported through record(pipeline, counts)
     and twin is the pair of patches that swap the kernels for their twins."""
@@ -975,7 +995,7 @@ def graph_phase(dev, model, pmodel, smi, record):
 
 
 def profile_phase(dev, config, smi, shadow_scene):
-    """Phase 12: the CLI's --profile trace (torch.profiler), the device's busy
+    """Phase 13: the CLI's --profile trace (torch.profiler), the device's busy
     and idle share in it, and the shadow frame by the stage profile before
     and after the profiler ran in this process.  Last, so that no other
     measurement follows the profiler in the process."""
@@ -1028,7 +1048,7 @@ def run_bench(*args):
 
 
 def bench_phase(dev, smi, record):
-    """Phase 13: the bench harness, in process (checked against
+    """Phase 14: the bench harness, in process (checked against
     render_burst) and as the command a user runs (fresh processes)."""
     from tiny_renderer_tpu_torch import RenderConfig, Scene, bench
     from tiny_renderer_tpu_torch.convert import to_tensor
@@ -1117,7 +1137,7 @@ def write_tga(path, rgb, rle=False):
 
 
 def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagship):
-    """Phase 11: the capacity scale.  The flagship stand-in is written to a
+    """Phase 12: the capacity scale.  The flagship stand-in is written to a
     temporary directory (model.obj and four TGAs, the texture RLE-coded),
     loaded by load_model on the native path and subdivided twice (81,536
     triangles).  K1 idx-only, depth-only and z+idx at capacity (int32 index
@@ -1454,8 +1474,8 @@ def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16
     from tiny_renderer_tpu_torch.ops.raster_dense import rasterize_dense
     from tiny_renderer_tpu_torch.parallel import (
         make_pp_mesh, make_row_mesh, render_batch_sharded, render_frame_sharded,
-        render_sequence_pipelined)
-    from tiny_renderer_tpu_torch.pipelines.frame import render_frame
+        render_sequence_pipelined, sharding)
+    from tiny_renderer_tpu_torch.pipelines.frame import render_frame, render_frame_jit
     from tiny_renderer_tpu_torch.utils.png import png_bytes
 
     t0 = time.perf_counter()
@@ -1524,74 +1544,155 @@ def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16
           f"(tolerance: exact)  [{time.perf_counter() - t0:.1f} s]")
 
     # -- the sharded frame at full width, 5 row shards on one card --
-    t1 = time.perf_counter()
+    # Each path at two poses: the first call captures its segments (one
+    # eager warm-up frame, then a replay: twice the launches of a frame),
+    # the second replays them and captures nothing.  The eager side runs
+    # the same segments eagerly (sharding._*(..., eager=True)).
     scene = Scene(model, "shadow", base, device=dev)
     g, t = scene._geom, scene._textures
     view = [to_tensor(np.float32(v), dev) for v in VIEW]
+    view2 = [to_tensor(np.float32(v), dev) for v in VIEW2]
     mesh = make_row_mesh([dev] * ROW_SHARDS)
     check(mesh.shape == {"batch": 1, "rows": ROW_SHARDS}, f"mesh {mesh.shape}")
-    singles = {}
+
+    def graphs_alive():
+        return [gr for prog in sharding._PROGRAMS.graphs() for gr in prog.graphs.values()]
+
+    def counted(fn):
+        raster_cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(raster_cuda.LAUNCHES)
+
+    def same(got, want, keys, label):
+        for key in keys:
+            check((got[key] is None) == (want[key] is None) and (
+                got[key] is None or torch.equal(got[key], want[key])), f"{label}: {key} differs")
+
+    def silent(fn):
+        """fn() with the sync debug mode at "error": a host sync raises."""
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+
+    singles, captures = {}, []
+    keys = ("frame", "z", "shadow", "overflow")
     for name, (knobs, needs_z, per_frame) in SHARD_CONFIGS.items():
         tc = time.perf_counter()
         c = dataclasses.replace(base, **knobs).resolve("shadow")
-        single = render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=needs_z)
-        raster_cuda.reset_launches()
-        got = render_frame_sharded(g, t, *view, pipeline="shadow", config=c, mesh=mesh, needs_z=needs_z)
-        torch.cuda.synchronize()
-        counts = dict(raster_cuda.LAUNCHES)
-        record("shadow, row-sharded", counts)
-        want = {m: per_frame.get(m, 0) for m in counts}
-        check(counts == want, f"sharded {name}: launches {counts}, expected {want}")
-        for key in ("frame", "z", "shadow", "overflow"):
-            check((got[key] is None) == (single[key] is None) and (
-                got[key] is None or torch.equal(got[key], single[key])),
-                f"sharded {name}: {key} differs from the single-device frame")
-        check(not bool(got["overflow"]) and bool((got["frame"] > 0).any()), f"sharded {name}: frame")
-        singles[name] = (c, needs_z, single)
-        phase("parallel", f"render_frame_sharded {name} on {ROW_SHARDS} row shards of {dev}: frame, z, "
-              f"shadow, overflow bit-identical to render_frame; launches {counts}  "
-              f"[{time.perf_counter() - tc:.1f} s]")
+        before = graphs_alive()
+        for i, v in enumerate((view, view2)):
+            single = render_frame(g, t, *v, pipeline="shadow", config=c, needs_z=needs_z)
+            eager, e_counts = counted(lambda: sharding._frame_sharded(
+                g, t, tuple(v), pipeline="shadow", config=c, mesh=mesh, backend="kernel",
+                needs_z=needs_z, eager=True))
+            n_graphs = len(graphs_alive())
+            got, counts = counted(lambda: render_frame_sharded(g, t, *v, pipeline="shadow", config=c,
+                                                               mesh=mesh, needs_z=needs_z))
+            want = {m: per_frame.get(m, 0) for m in counts}
+            check(e_counts == want, f"sharded {name} eager: launches {e_counts}, expected {want}")
+            if i == 0:
+                check(counts == {m: 2 * k for m, k in want.items()},
+                      f"sharded {name}: first call (warm-up + replay) launches {counts}, expected 2 x {want}")
+            else:
+                check(counts == want, f"sharded {name}: launches per replay {counts}, expected {want}")
+                check(len(graphs_alive()) == n_graphs, f"sharded {name}: the second pose captured a graph")
+            record("shadow, row-sharded", counts)
+            same(got, eager, keys, f"sharded {name} pose {i}: replayed vs eager sharded")
+            same(got, single, keys, f"sharded {name} pose {i}: replayed vs render_frame")
+            check(not bool(got["overflow"]) and bool((got["frame"] > 0).any()), f"sharded {name}: frame")
+            if i == 0:
+                singles[name] = (c, needs_z, single)
+        silent(lambda: render_frame_sharded(g, t, *view, pipeline="shadow", config=c, mesh=mesh,
+                                            needs_z=needs_z))
+        new = [gr for gr in graphs_alive() if not any(gr is b for b in before)]
+        captures += [(name, gr.capture_s, gr.pool_bytes) for gr in new]
+        phase("parallel", f"render_frame_sharded {name} on {ROW_SHARDS} row shards of {dev}, replayed "
+              f"({len(new)} segment graphs): frame, z, shadow, overflow bit-identical to the eager sharded "
+              f"frame and to render_frame at 2 poses; launches per replay {({k: v for k, v in counts.items() if v})}"
+              " = SHARD_CONFIGS; the second pose captured nothing; sync debug mode 'error' silent; graphs "
+              "(capture s, MB reserved): " + ", ".join(f"{cs:.3f} s {b / 2**20:.1f}" for _, cs, b in
+                                                       captures[len(captures) - len(new):])
+              + f"  [{time.perf_counter() - tc:.1f} s]")
 
-    # Batch and pipelined.
+    # Batch and pipelined, each at two sets of poses.
     t1 = time.perf_counter()
-    ang = np.linspace(0.2, 1.0, N_BATCH_FRAMES, dtype=np.float32)
-    lights = to_tensor(np.stack([[np.sin(a), 0, np.cos(a)] for a in ang]).astype(np.float32), dev)
-    froms = to_tensor(np.stack([[np.sin(a + 0.2), 0, np.cos(a + 0.2)] for a in ang]).astype(np.float32), dev)
+    poses = []
+    for a0 in (0.2, 1.1):
+        ang = np.linspace(a0, a0 + 0.8, N_BATCH_FRAMES, dtype=np.float32)
+        poses.append((to_tensor(np.stack([[np.sin(a), 0, np.cos(a)] for a in ang]).astype(np.float32), dev),
+                      to_tensor(np.stack([[np.sin(a + 0.2), 0, np.cos(a + 0.2)] for a in ang])
+                                .astype(np.float32), dev)))
     phong = Scene(model, "phong", base, device=dev)
     bmesh = make_row_mesh([dev] * (2 * ROW_SHARDS), batch=2)
-    raster_cuda.reset_launches()
-    out = render_batch_sharded(phong._geom, phong._textures, lights, froms, view[2], view[3],
-                               pipeline="phong", config=phong.config, mesh=bmesh)
-    torch.cuda.synchronize()
-    counts = dict(raster_cuda.LAUNCHES)
-    record("phong, batch-sharded", counts)
-    n_off = N_BATCH_FRAMES * (ROW_SHARDS - 1)
-    check(counts == {m: {"raster": N_BATCH_FRAMES * ROW_SHARDS, "offset": n_off}.get(m, 0) for m in counts},
-          f"batch: launches {counts}")
-    for i in range(N_BATCH_FRAMES):
-        one = render_frame(phong._geom, phong._textures, lights[i], froms[i], view[2], view[3],
-                           pipeline="phong", config=phong.config)
-        check(torch.equal(out["frame"][i], one["frame"]) and torch.equal(out["z"][i], one["z"]),
-              f"batch frame {i} differs from its single-device render")
-    check(not bool(out["overflow"].any()), "batch: overflow")
     pmesh = make_pp_mesh([dev] * (2 * ROW_SHARDS))
-    raster_cuda.reset_launches()
-    seq = render_sequence_pipelined(g, t, lights[:N_PP_FRAMES], froms[:N_PP_FRAMES], view[2], view[3],
-                                    pipeline="shadow", config=scene.config, mesh=pmesh)
-    torch.cuda.synchronize()
-    counts = dict(raster_cuda.LAUNCHES)
-    record("shadow, pipelined", counts)
-    want = {"raster": 2 * N_PP_FRAMES * ROW_SHARDS, "offset": 2 * N_PP_FRAMES * (ROW_SHARDS - 1)}
-    check(counts == {m: want.get(m, 0) for m in counts}, f"pipelined: launches {counts}")
-    for i in range(N_PP_FRAMES):
-        one = render_frame(g, t, lights[i], froms[i], view[2], view[3], pipeline="shadow",
-                           config=scene.config, needs_z=False)
-        check(torch.equal(seq["frame"][i], one["frame"]), f"pipelined frame {i} differs from render_frame")
-    check(not bool(seq["overflow"].any()), "pipelined: overflow")
+    batch_frame = {"raster": ROW_SHARDS, "offset": ROW_SHARDS - 1}
+    pp_frame = {"raster": 2 * ROW_SHARDS, "offset": 2 * (ROW_SHARDS - 1)}
+
+    def batch(lights, froms, eager=False):
+        return sharding._batch_sharded(phong._geom, phong._textures, lights, froms, view[2], view[3],
+                                       pipeline="phong", config=phong.config, mesh=bmesh, backend="kernel",
+                                       needs_z=True, eager=eager)
+
+    def pipelined(lights, froms, eager=False):
+        return sharding._sequence_pipelined(g, t, lights[:N_PP_FRAMES], froms[:N_PP_FRAMES], view[2],
+                                            view[3], pipeline="shadow", config=scene.config, mesh=pmesh,
+                                            backend="kernel", eager=eager)
+
+    before = graphs_alive()
+    for i, (lights, froms) in enumerate(poses):
+        for label, fn, n, per, public in (
+                ("batch", batch, N_BATCH_FRAMES, batch_frame, lambda: render_batch_sharded(
+                    phong._geom, phong._textures, lights, froms, view[2], view[3], pipeline="phong",
+                    config=phong.config, mesh=bmesh)),
+                ("pipelined", pipelined, N_PP_FRAMES, pp_frame, lambda: render_sequence_pipelined(
+                    g, t, lights[:N_PP_FRAMES], froms[:N_PP_FRAMES], view[2], view[3], pipeline="shadow",
+                    config=scene.config, mesh=pmesh))):
+            eager, e_counts = counted(lambda: fn(lights, froms, eager=True))
+            n_graphs = len(graphs_alive())
+            got, counts = counted(public)
+            # The first call adds its captures' warm-up: one frame's launches.
+            frames_run = n + (1 if i == 0 else 0)
+            check(e_counts == {m: n * per.get(m, 0) for m in e_counts}, f"{label} eager: launches {e_counts}")
+            check(counts == {m: frames_run * per.get(m, 0) for m in counts},
+                  f"{label} replayed (call {i}): launches {counts}, expected {frames_run} x {per}")
+            if i:
+                check(len(graphs_alive()) == n_graphs, f"{label}: the second call captured a graph")
+            record("phong, batch-sharded" if label == "batch" else "shadow, pipelined", counts)
+            same(got, eager, [k for k in ("frame", "z", "overflow") if k in got], f"{label} call {i}: "
+                 "replayed vs eager")
+            check(not bool(got["overflow"].any()), f"{label}: overflow")
+            for b in range(n):
+                if label == "batch":
+                    one = render_frame(phong._geom, phong._textures, lights[b], froms[b], view[2], view[3],
+                                       pipeline="phong", config=phong.config)
+                    check(torch.equal(got["z"][b], one["z"]), f"batch frame {b}: z differs")
+                else:
+                    one = render_frame(g, t, lights[b], froms[b], view[2], view[3], pipeline="shadow",
+                                       config=scene.config, needs_z=False)
+                check(torch.equal(got["frame"][b], one["frame"]),
+                      f"{label} frame {b} (call {i}) differs from its single-device render")
+    silent(lambda: render_batch_sharded(phong._geom, phong._textures, *poses[0], view[2], view[3],
+                                        pipeline="phong", config=phong.config, mesh=bmesh))
+    silent(lambda: render_sequence_pipelined(g, t, poses[0][0][:N_PP_FRAMES], poses[0][1][:N_PP_FRAMES],
+                                             view[2], view[3], pipeline="shadow", config=scene.config,
+                                             mesh=pmesh))
+    new = [gr for gr in graphs_alive() if not any(gr is b for b in before)]
+    captures += [("batch/pipelined", gr.capture_s, gr.pool_bytes) for gr in new]
     phase("parallel", f"render_batch_sharded phong, {N_BATCH_FRAMES} frames on a (2 batch, {ROW_SHARDS} rows) "
-          f"mesh, and render_sequence_pipelined shadow, {N_PP_FRAMES} frames on a (2 stage, {ROW_SHARDS} "
-          f"rows) mesh: every frame bit-identical to its single-device render  "
-          f"[{time.perf_counter() - t1:.1f} s]")
+          f"mesh (both groups on {dev}: one program), and render_sequence_pipelined shadow, {N_PP_FRAMES} frames "
+          f"on a (2 stage, {ROW_SHARDS} rows) mesh, replayed ({len(new)} segment graphs), at 2 sets of poses: "
+          "every frame bit-identical to the eager sharded path's and to its single-device render; launches "
+          f"per frame {batch_frame} and {pp_frame} (plus one warm-up frame at the capture); the second call "
+          f"captured nothing; sync debug mode 'error' silent  [{time.perf_counter() - t1:.1f} s]")
+    caps = [cs for _, cs, _ in captures]
+    mbs = [b / 2**20 for _, _, b in captures]
+    phase("parallel", f"{len(captures)} sharded segment graphs captured: capture (warm-up + capture) "
+          f"{min(caps):.3f}-{max(caps):.3f} s (median {float(np.median(caps)):.3f}), memory reserved per graph "
+          f"{min(mbs):.1f}-{max(mbs):.1f} MB (median {float(np.median(mbs)):.1f})  [{smi}]")
 
     # -- the dense backend --
     t2 = time.perf_counter()
@@ -1639,26 +1740,64 @@ def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16
                        to_tensor(np.float32(sharded_render.LOOK_FROM), dev), view[2], view[3],
                        pipeline="shadow", config=scene.config, needs_z=False)
     check(got == png_bytes(one["frame"].cpu().numpy()[::-1]), "the example's PNG differs from render_frame's")
-    check(counts["raster"] == 2 * ROW_SHARDS, f"example launches {counts}")
+    # Its first frame captures (warm-up + replay), then N_TIMED replays.
+    check(counts["raster"] == 2 * ROW_SHARDS * (2 + sharded_render.N_TIMED), f"example launches {counts}")
     phase("parallel", f"examples.sharded_render (defaults: 800x800, {ROW_SHARDS} shards, cuda, kernel): PNG "
           f"bytes equal to render_frame's, launches {counts}  [{time.perf_counter() - t3:.1f} s]")
 
     # -- times --
-    # The single-device and the sharded frame in turns (single, sharded,
-    # sharded, single), best of 5 each time.
+    # The shadow frame (no z) on one device and on 5 row shards, eager and
+    # replayed, in turns (there and back), best of 5 each time; the single
+    # replayed frame is render_frame_jit's (with z).  Then the batch and
+    # the pipelined sequence, eager and replayed, ms per frame.
     t4 = time.perf_counter()
     c = singles["default"][0]
     frame_fns = {
-        "single": lambda: render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=False),
-        "sharded": lambda: render_frame_sharded(g, t, *view, pipeline="shadow", config=c, mesh=mesh,
-                                                needs_z=False),
+        "single eager": lambda: render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=False),
+        "sharded eager": lambda: sharding._frame_sharded(g, t, tuple(view), pipeline="shadow", config=c,
+                                                         mesh=mesh, backend="kernel", needs_z=False,
+                                                         eager=True),
+        "sharded replayed": lambda: render_frame_sharded(g, t, *view, pipeline="shadow", config=c,
+                                                         mesh=mesh, needs_z=False),
+        "single replayed": lambda: render_frame_jit(g, t, *view, pipeline="shadow", config=c),
     }
-    turns = {"single": [], "sharded": []}
-    for key in ("single", "sharded", "sharded", "single"):
+    turns = {k: [] for k in frame_fns}
+    for key in list(frame_fns) + list(frame_fns)[::-1]:
         turns[key].append(host_ms(frame_fns[key], 5))
-    frame_single, frame_sharded = min(turns["single"]), min(turns["sharded"])
+    frame_ms = {k: min(v) for k, v in turns.items()}
     frame_dense = host_ms(lambda: render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=False,
                                                backend="dense"), 2)
+    lights, froms = poses[0]
+    seq_ms = {}
+    for key, fn, n in (("batch eager", lambda: batch(lights, froms, eager=True), N_BATCH_FRAMES),
+                       ("batch replayed", lambda: batch(lights, froms), N_BATCH_FRAMES),
+                       ("pipelined eager", lambda: pipelined(lights, froms, eager=True), N_PP_FRAMES),
+                       ("pipelined replayed", lambda: pipelined(lights, froms), N_PP_FRAMES)):
+        seq_ms[key] = host_ms(fn, 3) / n
+    # The raster inside the replayed sharded frame: torch.profiler over
+    # replayed frames (default config: 10 K1 launches a frame, 8 at an
+    # offset; fuse_passes: 5 K2, 4 at an offset).
+    graph_ms = {}
+    for key, knobs, pattern in (("banded", {}, K1_TRACE), ("banded_fused", dict(fuse_passes=True), K2_TRACE)):
+        ck = dataclasses.replace(base, **knobs).resolve("shadow")
+
+        def run(ck=ck):
+            for _ in range(N_SHARD_TRACED):
+                render_frame_sharded(g, t, *view, pipeline="shadow", config=ck, mesh=mesh, needs_z=False)
+
+        run()
+        events, busy, span = trace_kernels(run, dev)
+        durs = [ms for name_, cat, ms in events if cat == "kernel" and pattern.search(name_)]
+        per_frame = len(durs) / N_SHARD_TRACED
+        graph_ms[key] = (sum(durs) / N_SHARD_TRACED, float(np.mean(durs)) if durs else None, per_frame)
+        kernels = sum(cat == "kernel" for _, cat, _ in events)
+        check(per_frame == (2 * ROW_SHARDS if key == "banded" else ROW_SHARDS),
+              f"{key}: {len(durs)} launches in the trace of {N_SHARD_TRACED} replayed sharded frames")
+        phase("parallel", f"profiler over {N_SHARD_TRACED} replayed {ROW_SHARDS}-shard shadow frames "
+              f"({knobs or 'default config'}, no z): {kernels / N_SHARD_TRACED:.0f} GPU kernels a frame, "
+              f"device busy {busy:.3f} ms of a {span:.3f} ms span ({1 - busy / span if span else float('nan'):.1%} "
+              f"idle); {'K1' if key == 'banded' else 'K2'}: {per_frame:.0f} launches a frame, "
+              f"{graph_ms[key][0]:.4f} ms a frame, {graph_ms[key][1]:.4f} ms per launch inside the graphs  [{smi}]")
     # The banded launches of one sharded frame: each shard's light pass
     # (depth only) and camera pass (index only), or its K2 launch.
     work = {p: block_work(flag["setup"][p], flag[p], grid)["bbox"].reshape(cfg.num_tiles, -1).sum(1)
@@ -1698,11 +1837,15 @@ def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16
     # the K1 pair: the same work, so the same bound.
     bounds = {"banded": bound(k1_passes, ROW_SHARDS * 2 * px * 4),
               "banded_fused": bound(k1_passes, ROW_SHARDS * 2 * px * 4)}
-    phase("parallel", f"shadow frame at {W}x{H} (host clock + synchronize; best of 5, in turns single, "
-          f"sharded, sharded, single): single device {frame_single:.3f} ms "
-          f"({' / '.join(f'{v:.3f}' for v in turns['single'])}), {ROW_SHARDS} row shards on one card "
-          f"{frame_sharded:.3f} ms ({' / '.join(f'{v:.3f}' for v in turns['sharded'])}; "
-          f"{frame_sharded / frame_single:.2f}x); dense backend {frame_dense:.3f} ms (best of 2)  [{smi}]")
+    phase("parallel", f"shadow frame at {W}x{H}, ms (host clock + synchronize; best of 5, in turns there and "
+          "back): " + "; ".join(f"{k} {frame_ms[k]:.3f} ({' / '.join(f'{v:.3f}' for v in turns[k])})"
+                                for k in frame_fns)
+          + f"; {ROW_SHARDS} shards replayed / eager {frame_ms['sharded replayed'] / frame_ms['sharded eager']:.3f}, "
+          f"/ single replayed {frame_ms['sharded replayed'] / frame_ms['single replayed']:.2f}x; dense backend "
+          f"{frame_dense:.3f} ms (best of 2)  [{smi}]")
+    phase("parallel", "ms per frame (host clock + synchronize, best of 3 calls): " + "; ".join(
+        f"{k} {v:.3f}" for k, v in seq_ms.items()) + f" (batch: {N_BATCH_FRAMES} phong frames on (2, "
+        f"{ROW_SHARDS}); pipelined: {N_PP_FRAMES} shadow frames on (2 stage, {ROW_SHARDS}))  [{smi}]")
     for key, label in (("banded", f"K1 banded, the {2 * ROW_SHARDS} launches of one sharded frame"),
                        ("banded_fused", f"K2 banded, the {ROW_SHARDS} launches of one sharded frame")):
         paced, twin_ms, dms = ms[key]
@@ -1710,7 +1853,133 @@ def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16
               f"launch queue held full, twin {twin_ms:.4f} ms; bound {bounds[key][0]:.6f} ms by "
               f"{bounds[key][1]} ({bounds[key][0] / dms:.2%} of it)  [{smi}]")
     phase("parallel", f"times took {time.perf_counter() - t4:.1f} s")
-    return ms, bounds
+    return ms, bounds, graph_ms
+
+
+# The fuzz phase's draws: (seed, pipeline), one per pipeline, and two
+# seeds whose draws take K2 (fuse_passes, compact_shade, no strip_planes,
+# one band) on the two-pass pipelines; triangles per random scene (as in
+# tests/test_fuzz_configs.py).
+FUZZ_DRAWS = ((11, "occlusion"), (12, "phong"), (13, "shadow"), (14, "default"), (15, "normal_map"),
+              (16, "specular"), (17, "darboux"), (27, "shadow"), (30, "occlusion"))
+FUZZ_TRIANGLES = 100
+
+
+def random_scene(n, seed, spread=0.8):
+    """tests/test_fuzz_configs.py's _random_scene: n random triangles of
+    unit-sphere normals and random uv (the same draw)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-spread, spread, (n, 1, 3)).astype(np.float32)
+    offs = rng.uniform(-0.35, 0.35, (n, 3, 3)).astype(np.float32)
+    verts = (centers + offs).reshape(-1, 3)
+    normals = verts / np.maximum(np.linalg.norm(verts, axis=1, keepdims=True), 1e-6)
+    idx = np.arange(3 * n, dtype=np.int32).reshape(n, 3)
+    return {"positions": verts, "tex_coords": rng.uniform(0.02, 0.98, (3 * n, 2)).astype(np.float32),
+            "normals": normals.astype(np.float32), "pos_idx": idx, "tex_idx": idx, "normal_idx": idx}
+
+
+def random_config(rng, width, height):
+    """tests/test_fuzz_configs.py's _random_config draw (the same choices in
+    the same order): a random valid knob composition, as RenderConfig
+    keywords.  A copy, since the card has no JAX and that module imports
+    it."""
+    tile_h = int(rng.choice([8, 16, 32]))
+    strip_len = int(rng.choice([4, 8, 16, 32]))
+    return dict(
+        width=width, height=height, tri_block=32, tile_h=tile_h, tile_w=int(rng.choice([128, 256])),
+        strip_len=strip_len, strip_batch=int(rng.choice([128, 512])),
+        raster_group=int(rng.choice([4, 16])), csr_indirect=bool(rng.integers(2)),
+        binning_compact=bool(rng.integers(2)), fuse_passes=bool(rng.integers(2)),
+        strip_mask=bool(rng.integers(2)), strip_planes=bool(rng.integers(2)),
+        compact_shade=bool(rng.integers(2)), idx_int16=bool(rng.integers(2)) and tile_h % 16 == 0,
+        tex_tile=int(rng.choice([0, 8, 16])), shadow_tile=int(rng.choice([0, 8, 16])),
+        max_span_y=int(rng.choice([2, 4, 8])), max_span_x=int(rng.choice([2, 4])),
+        row_bands=int(rng.choice([0, 0, 2, 3])),
+    )
+
+
+def fuzz_phase(dev, record):
+    """Phase 9: seeded random knob compositions (random_config) on random
+    scenes at 800x800, one draw per pipeline and two that take K2, each
+    with its span caps as drawn (at 800x800 they bind: the frames flag
+    overflow, the regime of flagged, deterministic drops) and with loose
+    ones (a full-screen bbox fits: no overflow allowed).  At two poses the
+    eager frame (with z) equal to the same frame with the twins in place of
+    K1 and K2, and the replayed frame (make_frame_fn) byte-equal to it; a
+    2-frame burst at the same angles (no z: K2 where the gate allows it)
+    replayed equal to the eager burst and to the twins' burst.  Launches
+    per replay equal to the eager ones."""
+    from tiny_renderer_tpu_torch import RenderConfig
+    from tiny_renderer_tpu_torch.convert import scene_arrays, to_tensor
+    from tiny_renderer_tpu_torch.models.procedural import make_textures
+    from tiny_renderer_tpu_torch.ops import raster_cuda
+    from tiny_renderer_tpu_torch.pipelines.frame import (
+        _render_burst_eager, make_burst_fn, make_frame_fn, render_frame)
+
+    t0 = time.perf_counter()
+    tex = make_textures(64)
+    twins = (mock.patch.object(raster_cuda, "rasterize", raster_cuda.rasterize_reference),
+             mock.patch.object(raster_cuda, "rasterize_fused", raster_cuda.rasterize_fused_reference))
+
+    def counted(fn):
+        raster_cuda.reset_launches()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, dict(raster_cuda.LAUNCHES)
+
+    def twin(fn):
+        with twins[0], twins[1]:
+            return fn()
+
+    draws = []
+    for seed, pipeline in FUZZ_DRAWS:
+        rng = np.random.default_rng(seed)
+        a, b = rng.uniform(-np.pi, np.pi, 2)
+        knobs = random_config(rng, 800, 800)
+        loose = dict(knobs, max_span_y=-(-800 // knobs["tile_h"]), max_span_x=-(-800 // knobs["tile_w"]))
+        draws += [(seed, pipeline, a, b, knobs, "drawn"), (seed, pipeline, a, b, loose, "loose")]
+    for seed, pipeline, a, b, knobs, caps in draws:
+        td = time.perf_counter()
+        g, t = scene_arrays(random_scene(FUZZ_TRIANGLES, seed), tex, dev)
+        label = f"fuzz {seed} {pipeline} {knobs}"
+        cfg = RenderConfig(**knobs).resolve(pipeline)
+        cams = torch.tensor([b, b + 0.7], dtype=torch.float32, device=dev)
+        ligs = torch.tensor([a, a - 0.4], dtype=torch.float32, device=dev)
+        fn = make_frame_fn(pipeline, cfg)
+        for i in range(2):
+            view = [to_tensor(np.float32(v), dev) for v in (
+                [np.sin(ligs[i].item()), 0.0, np.cos(ligs[i].item())],
+                [np.sin(cams[i].item()), 0.0, np.cos(cams[i].item())], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])]
+            eager, e_counts = counted(lambda: render_frame(g, t, *view, pipeline=pipeline, config=cfg))
+            tw = twin(lambda: render_frame(g, t, *view, pipeline=pipeline, config=cfg))
+            got, counts = counted(lambda: fn(g, t, *view))
+            record(f"fuzz {pipeline}", counts)
+            for k in ("frame", "z", "shadow", "overflow"):
+                check(torch.equal(eager[k], tw[k]), f"{label} pose {i}: the eager {k} differs from the twins'")
+                check(torch.equal(got[k], eager[k]), f"{label} pose {i}: the replayed {k} differs from eager")
+            # The first call adds the capture's warm-up frame.
+            check(counts == {m: (1 if i else 2) * n for m, n in e_counts.items()},
+                  f"{label}: frame launches {counts}, eager {e_counts}")
+        eb, e_counts = counted(lambda: _render_burst_eager(g, t, cams, ligs, pipeline=pipeline, config=cfg,
+                                                           keep_frames=True))
+        tb = twin(lambda: _render_burst_eager(g, t, cams, ligs, pipeline=pipeline, config=cfg, keep_frames=True))
+        rb, b_counts = counted(lambda: make_burst_fn(pipeline, cfg, keep_frames=True)(g, t, cams, ligs))
+        record(f"fuzz {pipeline}", b_counts)
+        for k in ("frames", "checksums", "overflow"):
+            check(torch.equal(eb[k], tb[k]), f"{label}: the eager burst's {k} differ from the twins'")
+            check(torch.equal(rb[k], eb[k]), f"{label}: the replayed burst's {k} differ from the eager burst's")
+        check(all(n % 2 == 0 for n in e_counts.values())
+              and b_counts == {m: 3 * n // 2 for m, n in e_counts.items()},
+              f"{label}: burst launches {b_counts} (warm-up + 2 replays), eager {e_counts} (2 frames)")
+        check(caps == "drawn" or not bool(eb["overflow"].any()), f"{label}: overflow under loose span caps")
+        on = {k: v for k, v in knobs.items() if k not in ("width", "height", "tri_block")}
+        phase("fuzz", f"seed {seed} {pipeline} ({caps} span caps), {FUZZ_TRIANGLES} random triangles at "
+              f"800x800, {on}: eager frame "
+              f"and 2-frame burst = the twins' (K1/K2), replayed = eager at 2 poses, launches per replay "
+              f"{({k: v for k, v in counts.items() if v})}, per burst frame "
+              f"{({k: v // 2 for k, v in e_counts.items() if v})} = eager; overflow "
+              f"{eb['overflow'].tolist()}  [{time.perf_counter() - td:.1f} s]")
+    phase("fuzz", f"{len(draws)} draws took {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2136,11 +2405,15 @@ def main() -> int:
     lap("graph")
 
     # -- 8. parallel ----------------------------------------------------------
-    par_ms, par_bounds = parallel_phase(dev, model, RenderConfig(), smi, record, passes, compare, cases,
-                                        specs["planes-tex16"])
+    par_ms, par_bounds, par_graph = parallel_phase(dev, model, RenderConfig(), smi, record, passes, compare,
+                                                   cases, specs["planes-tex16"])
     lap("parallel")
 
-    # -- 9. timing ------------------------------------------------------------
+    # -- 9. fuzz --------------------------------------------------------------
+    fuzz_phase(dev, record)
+    lap("fuzz")
+
+    # -- 10. timing -----------------------------------------------------------
     def timed(key, label, kernel, twin):
         """(kernel ms paced by the host, twin ms, kernel ms on the device)."""
         ms = (time_launches(kernel, 200), time_launches(twin, 5), time_launches(kernel, 200, hold=True))
@@ -2273,20 +2546,20 @@ def main() -> int:
               f"the device)  [{smi}]")
     lap("timing")
 
-    # -- 10. entry -------------------------------------------------------------
+    # -- 11. entry ------------------------------------------------------------
     entry_phase(dev, model, RenderConfig(), smi, record, twin, pcams, pligs, scene,
                 pipe_runs["default"][1])
     lap("entry")
 
-    # -- 11. capacity ---------------------------------------------------------
+    # -- 12. capacity ---------------------------------------------------------
     cap_ms, cap_bounds = capacity_phase(dev, model, RenderConfig(), smi, record, passes, compare, grid, scene)
     lap("capacity")
 
-    # -- 12. profile ----------------------------------------------------------
+    # -- 13. profile ----------------------------------------------------------
     profile_phase(dev, RenderConfig(), smi, scene)
     lap("profile")
 
-    # -- 13. bench ------------------------------------------------------------
+    # -- 14. bench ------------------------------------------------------------
     bench_phase(dev, smi, record)
     lap("bench")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
@@ -2330,6 +2603,9 @@ def main() -> int:
                                                   ("fused", "fused"))}
     if graph_ms.get("light z") is not None and graph_ms.get("camera idx") is not None:
         in_graph["depth"] = graph_ms["light z"] + graph_ms["camera idx"]
+    # The offset rows: ms per replayed sharded frame (its 10 K1 or 5 K2
+    # launches inside the segment graphs).
+    in_graph.update({k: par_graph[k][0] for k in ("banded", "banded_fused")})
 
     for name, _r, _k, mode, _t in entries:
         check(mode_paths[mode], f"{name}: no path launched it")

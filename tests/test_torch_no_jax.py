@@ -49,6 +49,13 @@ _SCRIPT = textwrap.dedent("""
     sharded = render_frame_sharded(g, t, *view, pipeline="shadow", config=cfg,
                                    mesh=make_row_mesh([torch.device("cpu")] * 8))
     assert (sharded["frame"] > 0).any() and not bool(sharded["overflow"])
+    from tiny_renderer_tpu_torch.parallel import make_pp_mesh, render_batch_sharded, render_sequence_pipelined
+    lights, froms = torch.stack([view[0], view[0]]), torch.stack([view[1], view[1]])
+    batch = render_batch_sharded(g, t, lights, froms, view[2], view[3], pipeline="shadow", config=cfg,
+                                 mesh=make_row_mesh([torch.device("cpu")] * 8, batch=2))
+    seq = render_sequence_pipelined(g, t, lights, froms, view[2], view[3], pipeline="shadow", config=cfg,
+                                    mesh=make_pp_mesh([torch.device("cpu")] * 8))
+    assert torch.equal(batch["frame"][0], sharded["frame"]) and torch.equal(seq["frame"][1], sharded["frame"])
     # The native asset loader, mesh subdivision, row bands, the dense backend
     # through Scene.
     from tiny_renderer_tpu_torch.assets import mesh_tools, native
@@ -87,7 +94,7 @@ def test_package_imports_and_renders_without_jax():
 
 
 def test_package_sources_never_import_jax():
-    for path in (ROOT / "tiny_renderer_tpu_torch").rglob("*.py"):
+    for path in [*(ROOT / "tiny_renderer_tpu_torch").rglob("*.py"), ROOT / "chip_smoke.py"]:
         text = path.read_text()
         assert "import jax" not in text and "from jax" not in text, path
         assert "from tiny_renderer_tpu." not in text and "import tiny_renderer_tpu\n" not in text, path

@@ -18,6 +18,10 @@ Run:  python -m tiny_renderer_tpu_torch.examples.sharded_render [asset_dir] [--o
   light view instead of gathering the shadow map (same pixels).
   --pipelined: a 3-frame orbit through render_sequence_pipelined on a
   ("stage", "rows") mesh of 2 x shards, writing <out>-N.png per frame.
+
+On a CUDA device the sharded frame is a set of replayed CUDA graphs (the
+first call captures them); the example then renders N_TIMED more frames
+(sequences with --pipelined) and prints the ms per frame.
 """
 
 from __future__ import annotations
@@ -25,11 +29,13 @@ from __future__ import annotations
 import argparse
 import os
 import sys
+import time
 
 import numpy as np
 import torch
 
 N_PIPELINED = 3
+N_TIMED = 10  # frames (sequences) timed after the first on a CUDA device
 LIGHT = [0.35, 0.0, 0.94]
 LOOK_FROM = [0.25, 0.0, 0.97]
 
@@ -45,6 +51,20 @@ def _size(value, shards):
     if size <= 0 or size % shards != 0:
         sys.exit(f"--size must be a positive multiple of the mesh's row axis ({shards}), got {size}")
     return size
+
+
+def _print_time(render, dev, frames):
+    """On a CUDA device: the host-clock ms per frame of N_TIMED more calls
+    of render() (each `frames` frames, replayed), closed by a synchronize."""
+    if dev.type != "cuda":
+        return
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    for _ in range(N_TIMED):
+        render()
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / (N_TIMED * frames)
+    print(f"{ms:.3f} ms per frame ({N_TIMED * frames} frames replayed on {torch.cuda.get_device_name(dev)})")
 
 
 def main(argv=None):
@@ -101,9 +121,14 @@ def main(argv=None):
                                .astype(np.float32), dev)
             froms = to_tensor(np.stack([[np.sin(a + 0.25), 0.0, np.cos(a + 0.25)] for a in angles])
                               .astype(np.float32), dev)
-            result = render_sequence_pipelined(geom, tex, lights, froms, look_at, up,
-                                               pipeline="shadow", config=cfg, mesh=mesh,
-                                               backend=args.backend)
+
+            def render():
+                return render_sequence_pipelined(geom, tex, lights, froms, look_at, up,
+                                                 pipeline="shadow", config=cfg, mesh=mesh,
+                                                 backend=args.backend)
+
+            result = render()
+            _print_time(render, dev, N_PIPELINED)
             base, ext = os.path.splitext(args.out)
             for i in range(N_PIPELINED):
                 write_png(f"{base}-{i}{ext}", result["frame"][i].cpu().numpy()[::-1])  # presentation flip
@@ -112,10 +137,14 @@ def main(argv=None):
             return
         mesh = make_row_mesh([dev] * args.shards)
         print(f"mesh: {mesh.shape} over {args.shards} shards on {dev}")
-        result = render_frame_sharded(
-            geom, tex, to_tensor(np.float32(LIGHT), dev), to_tensor(np.float32(LOOK_FROM), dev),
-            look_at, up, pipeline="shadow", config=cfg, mesh=mesh, backend=args.backend,
-        )
+        light, look_from = to_tensor(np.float32(LIGHT), dev), to_tensor(np.float32(LOOK_FROM), dev)
+
+        def render():
+            return render_frame_sharded(geom, tex, light, look_from, look_at, up, pipeline="shadow",
+                                        config=cfg, mesh=mesh, backend=args.backend)
+
+        result = render()
+        _print_time(render, dev, 1)
     except ValueError as e:  # a shard height the tile grid cannot take
         sys.exit(str(e))
     frame = result["frame"].cpu().numpy()[::-1]  # presentation flip

@@ -30,12 +30,14 @@ GRAPH_CACHE_SIZE = 16
 
 
 class CapturedGraph:
-    """fn(*inputs) captured as one CUDA graph on the inputs' device.
+    """fn(*inputs) captured as one CUDA graph on `device` (by default the
+    inputs' device).
 
-    `inputs` are tensors on one CUDA device; their clones become the static
-    inputs.  fn runs once eagerly on a side stream first (the warm-up: it
-    builds the raster library and fills the constant caches and the
-    allocator), then once under capture.  `hold`: tensors whose addresses
+    `inputs` are tensors; their copies on the device become the static
+    inputs (a segment of a sharded frame may have none: it reads its
+    inputs in place).  fn runs once eagerly on a side stream first (the
+    warm-up: it builds the raster library and fills the constant caches
+    and the allocator), then once under capture on that stream.  `hold`: tensors whose addresses
     the graph reads (geometry, textures), kept alive with it.  `name` says
     what was captured in the error raised when the capture fails.
 
@@ -48,36 +50,40 @@ class CapturedGraph:
     memory the capture reserved).
     """
 
-    def __init__(self, fn, inputs, name, hold=()):
+    def __init__(self, fn, inputs, name, hold=(), device=None):
         self.lock = threading.Lock()
         self.hold = tuple(hold)
-        self.inputs = [x.clone() for x in inputs]
-        dev = self.inputs[0].device
+        self.device = dev = torch.device(device) if device is not None else inputs[0].device
+        self.inputs = [x.to(dev, copy=True) for x in inputs]
         t0 = time.perf_counter()
-        side = torch.cuda.Stream(dev)
-        side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            fn(*self.inputs)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        torch.cuda.empty_cache()  # as the capture's own entry does: the pool's growth is then its size
-        reserved = torch.cuda.memory_reserved(dev)
-        self.graph = torch.cuda.CUDAGraph()
-        try:
-            with raster_cuda.recording() as self.launches, \
-                    torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
-                self.outputs = fn(*self.inputs)
-        except RuntimeError as e:
-            raise RuntimeError(
-                f"capturing {name} as a CUDA graph failed; a captured frame may not read "
-                f"device values on the host or copy from pageable host memory: {e}") from e
+        with torch.cuda.device(dev):
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                fn(*self.inputs)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+            torch.cuda.empty_cache()  # as the capture's own entry does: the pool's growth is then its size
+            reserved = torch.cuda.memory_reserved(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            try:
+                # The side stream is on `dev`; the default capture stream is
+                # made once, on whichever device was current then.
+                with raster_cuda.recording() as self.launches, \
+                        torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
+                    self.outputs = fn(*self.inputs)
+            except RuntimeError as e:
+                raise RuntimeError(
+                    f"capturing {name} as a CUDA graph failed; a captured frame may not read "
+                    f"device values on the host or copy from pageable host memory: {e}") from e
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 
     def __call__(self, *inputs):
-        for static, x in zip(self.inputs, inputs):
-            static.copy_(x, non_blocking=True)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            for static, x in zip(self.inputs, inputs):
+                static.copy_(x, non_blocking=True)
+            self.graph.replay()
         raster_cuda.replayed(self.launches)
         return self.outputs
 
