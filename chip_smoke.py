@@ -7,7 +7,8 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 
 1. device  — require CUDA; print the card's name and power limit.
 2. build   — compile the raster kernels (csrc/raster.cu) with nvcc for sm_90a,
-             and their probe build beside them, and print ptxas's
+             their probe build and the graphs' IF nodes (csrc/graph_if.cu)
+             beside them, all three at once, and print ptxas's
              registers/spills for every instantiation.
 3. kernel  — every kernel mode against its plain torch twin on seeded random
              soups, the depth tie case, the flagship scene's two passes and
@@ -78,7 +79,24 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              pipeline, and under torch.profiler over replayed shadow bursts
              (captured before the trace) the device's idle share and each
              mode's K1/K2 device ms per launch inside the graph.
-8. parallel — the scale-out path (parallel.sharding).  On the random soups
+8. shade   — the strip shade's covered-count chunks as IF nodes of the
+             replayed graphs (frame.shade_chunks, graphs.device_if, built
+             from csrc/graph_if.cu), at three coverages: the flagship moved
+             off screen (no covered strip), the stock pose, and a wall that
+             covers every strip.  For the seven pipelines, occlusion under
+             occlusion_dedup (its lax.cond nested in the chunks) and shadow
+             under strip_mask + strip_planes + nopack: the replayed
+             Scene.render byte-equal to the eager render_frame and a
+             4-frame replayed burst's frames to the eager burst's; the
+             sharded SHARD_CONFIGS replayed, byte-equal to the eager
+             sharded frame and to render_frame.  torch.profiler over
+             replayed shadow frames: GPU kernels per frame at each coverage
+             and the chunk bodies run (none at count 0, the chunk rule's
+             number elsewhere).  The replayed shade alone (device ms,
+             scripts/torch_shade_device_time.py) at each coverage, beside
+             one chunk of every slot and the earlier all-slots time; capture
+             seconds and MB per graph.
+9. parallel — the scale-out path (parallel.sharding).  On the random soups
              and the flagship, every kernel mode on a band of 5 tile rows
              at row tile offsets 1, 3 and the last band, binned for that
              band (K1 z, idx, z+idx, int16, strips SL 8 and 16, phase 2
@@ -112,7 +130,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              device ms inside the graphs; the banded K1 and K2 launches
              of one sharded frame (paced, twin, device ms) beside their
              bound and the card's name and power limit.
-9. fuzz    — seeded random knob compositions (tests/test_fuzz_configs.py's
+10. fuzz    — seeded random knob compositions (tests/test_fuzz_configs.py's
              _random_config draw, copied) on random scenes of 100
              triangles at 800x800, one draw per pipeline and two that take
              K2, each with the drawn span caps (binding: overflow flagged)
@@ -121,7 +139,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              K1 and K2, the replayed frame (make_frame_fn) and burst
              byte-equal to the eager ones at two poses, with the eager
              launches per replay.
-10. timing  — kernel and twin ms per launch per mode at the flagship shapes
+11. timing  — kernel and twin ms per launch per mode at the flagship shapes
              (CUDA events around launches paced by the host, as the times
              before the redesign were taken, and the kernel's device time
              with the launch queue held full), beside those earlier times
@@ -132,7 +150,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              4-plane and 15-plane specs (paced, twin and device times)
              beside its bound;
              beside the card's name and power limit.
-11. entry  — the entry points above the frame path, each at 800x800 on the
+12. entry  — the entry points above the frame path, each at 800x800 on the
              flagship scene.  Registry: custom pipelines registered with
              register_pipeline — toon (one pass, uv + intensity), fog
              (two_pass, uv + zfrag, reads the shadow buffer) and glow (the
@@ -154,7 +172,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              angle, /healthz ok.  Prints the stage breakdown of shadow and
              default (CUDA-event and host ms per stage), ms per served
              request and interactive ms per frame.
-12. capacity — the capacity scale.  The flagship stand-in written to a
+13. capacity — the capacity scale.  The flagship stand-in written to a
              temporary directory (model.obj and four 1024^2 TGAs, the
              texture RLE-coded), loaded by load_model on the native path
              (assets/native.py, g++-built; the NumPy parsers patched to
@@ -174,13 +192,13 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              twin, device) beside their bounds, each pass's device ms, and
              the capacity frames (burst ms/frame and Scene.render latency)
              in turns with the flagship's shadow frame.
-13. profile — the CLI with --profile (torch.profiler): the trace's GPU
+14. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
              profiler ran (the last phase timed in this process: only the
              bench phase's check follows, and its times come from fresh
              processes).
-14. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
+15. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
              In process: bench_config for diablo/shadow at 800x800 with 16
              frames, its K1 launches counted, its timed burst's checksums
              bit-equal to render_burst's on the same angles and the same
@@ -517,7 +535,7 @@ def host_ms(fn, n):
 
 
 def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scene, default_scene):
-    """Phase 11: the entry points above the frame path (register_pipeline,
+    """Phase 12: the entry points above the frame path (register_pipeline,
     the CLI, the interactive loop, the frame server), every scene starting
     from `config`; launches are reported through record(pipeline, counts)
     and twin is the pair of patches that swap the kernels for their twins."""
@@ -783,6 +801,9 @@ GRAPH_MODES = {
     "strips": (dict(strip_mask=True), ("true", "false")),
     "planes": (dict(strip_planes=True), ("true", "true")),
     "fused": (dict(fuse_passes=True), "fused"),
+    # darboux's 4-plane kernel spec (texel index over its maps + local_z),
+    # a replayed darboux burst under compact_shade=False.
+    "planes darboux": (dict(compact_shade=False), ("true", "true"), "darboux"),
 }
 N_GRAPH_FRAMES = 64
 N_GRAPH_TIMED = 16
@@ -966,14 +987,16 @@ def graph_phase(dev, model, pmodel, smi, record):
     # The profiler over replayed bursts: idle share, and each mode's kernel
     # time inside the graph.
     graph_ms, shadow_sc = {}, scenes["shadow", "default"][0]
-    for mode, (knobs, inst) in GRAPH_MODES.items():
+    for mode, (knobs, inst, *other) in GRAPH_MODES.items():
         # Each graph is captured and replayed once before the trace: the
         # trace holds replays of a graph already on the device.
+        pipeline = other[0] if other else "shadow"
         if mode == "camera z+idx":
             run, n = shadow_sc.render, 4
         else:
-            sc = shadow_sc if not knobs else Scene(model, "shadow", RenderConfig(**knobs), device=dev)
-            fn = make_burst_fn("shadow", sc.config)
+            sc = shadow_sc if not knobs else Scene(pmodel if other else model, pipeline, RenderConfig(**knobs),
+                                                   device=dev)
+            fn = make_burst_fn(pipeline, sc.config)
             run = (lambda fn=fn, sc=sc: fn(sc._geom, sc._textures, cams[:N_GRAPH_TIMED], ligs[:N_GRAPH_TIMED]))
             n = N_GRAPH_TIMED
         run()
@@ -985,7 +1008,7 @@ def graph_phase(dev, model, pmodel, smi, record):
                     and m.groups() == inst]
         graph_ms[mode] = float(np.mean(durs)) if durs else None
         kernels = sum(cat == "kernel" for _, cat, _ in events)
-        phase("graph", f"profiler over {n} replayed shadow {'Scene.render' if mode == 'camera z+idx' else 'burst'}"
+        phase("graph", f"profiler over {n} replayed {pipeline} {'Scene.render' if mode == 'camera z+idx' else 'burst'}"
               f" frames ({knobs or 'default config'}): {kernels} GPU kernels, "
               f"{len(events) - kernels} copies/fills, device busy {busy:.3f} ms of a {span:.3f} ms span "
               f"({1 - busy / span if span else float('nan'):.1%} idle); {mode}: {len(durs)} launches, "
@@ -994,8 +1017,175 @@ def graph_phase(dev, model, pmodel, smi, record):
     return graph_ms
 
 
+# The shade phase: the strip shade as it ran before its chunks (every slot
+# in one batch), alone, in device ms (scripts/torch_shade_device_time.py
+# on an NVIDIA H100 80GB HBM3 at 700 W), beside this run's chunked shade.
+ALL_SLOTS_SHADE_MS = {"shadow": 1.119, "occlusion": 4.455}
+SHADE_RUNS = [(p, "default", {}) for p in PIPELINE_ORDER] + [
+    ("occlusion", "dedup", dict(occlusion_dedup=True)),
+    ("shadow", "mask+planes+nopack", dict(strip_mask=True, strip_planes=True, strip_pack_words=False))]
+N_SHADE_FRAMES = 4  # burst frames per coverage, camera angles near 0 (the wall covers every strip)
+N_SHADE_TRACED = 8  # replayed Scene.render frames under the profiler per coverage
+IF_TRACE = re.compile(r"set_conditional_kernel")
+
+
+def shade_phase(dev, pmodel, smi, record):
+    """Phase 8: the strip shade's covered-count chunks, IF nodes of the
+    replayed graphs (frame.shade_chunks, graphs.device_if), at three
+    coverages: no triangle on screen, the stock pose, and a wall covering
+    every strip (scripts/torch_shade_device_time.py's coverage_models).
+    Every pipeline's replayed Scene.render byte-equal to the eager
+    render_frame and its replayed burst's frames to the eager burst's (and
+    occlusion under occlusion_dedup, whose lax.cond is nested in the chunk
+    bodies, and shadow under strip_mask + strip_planes + nopack), and
+    SHARD_CONFIGS' replayed sharded frames to the eager sharded frame and
+    to render_frame.  torch.profiler over replayed shadow frames: GPU
+    kernels per frame at each coverage and the chunk bodies they ran (the
+    count-0 frame none).  The replayed shade's device ms against covered
+    strips beside the earlier all-slots shade, and capture s and MB per graph."""
+    from tiny_renderer_tpu_torch import RenderConfig, Scene
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.ops import raster_cuda
+    from tiny_renderer_tpu_torch.ops.mathlib import F32_MIN
+    from tiny_renderer_tpu_torch.parallel import make_row_mesh, render_frame_sharded, sharding
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+    from tiny_renderer_tpu_torch.pipelines.frame import _render_burst_eager, make_burst_fn, render_frame
+
+    sys.path.insert(0, os.path.join(ROOT, "scripts"))
+    import torch_shade_device_time as shade_time
+
+    models = shade_time.coverage_models(pmodel)
+    view = [to_tensor(np.float32(v), dev) for v in VIEW]
+    cams = torch.tensor(0.10 + 0.05 * np.arange(N_SHADE_FRAMES), dtype=torch.float32, device=dev)
+    ligs = torch.tensor(-0.2 + 0.1 * np.arange(N_SHADE_FRAMES), dtype=torch.float32, device=dev)
+    keys = ("frame", "z", "shadow", "overflow")
+
+    def covered_strips(z, cfg):
+        return int((z > F32_MIN).reshape(-1, cfg.strip_len).any(-1).sum())
+
+    def coverage_ok(cov, n, cfg):
+        strips = cfg.width * cfg.height // cfg.strip_len
+        return n == 0 if cov == "none" else n == strips if cov == "all" else 0 < n < strips // 4
+
+    captures, scenes = [], {}
+    for pipeline, label, knobs in SHADE_RUNS:
+        t0, notes, before = time.perf_counter(), [], tframe._GRAPHS.graphs()
+        for cov in shade_time.COVERAGES:
+            sc = Scene(models[cov], pipeline, RenderConfig(**knobs), device=dev)
+            sc.set_light_direction(VIEW[0])
+            sc.set_camera(*VIEW[1:])
+            raster_cuda.reset_launches()
+            got = sc.render()
+            torch.cuda.synchronize(dev)
+            record(pipeline, raster_cuda.LAUNCHES)
+            want = render_frame(sc._geom, sc._textures, *view, pipeline=pipeline, config=sc.config)
+            for k in keys:
+                check(torch.equal(got[k], want[k]), f"shade {pipeline} {label} {cov}: replayed {k} differs from eager")
+            n = covered_strips(want["z"], sc.config)
+            check(coverage_ok(cov, n, sc.config) and not bool(want["overflow"]),
+                  f"shade {pipeline} {label} {cov}: {n} covered strips, overflow {bool(want['overflow'])}")
+            raster_cuda.reset_launches()
+            bg = make_burst_fn(pipeline, sc.config, keep_frames=True)(sc._geom, sc._textures, cams, ligs)
+            torch.cuda.synchronize(dev)
+            record(pipeline, raster_cuda.LAUNCHES)
+            be = _render_burst_eager(sc._geom, sc._textures, cams, ligs, pipeline=pipeline, config=sc.config,
+                                     keep_frames=True)
+            check(torch.equal(bg["frames"], be["frames"]) and torch.equal(bg["checksums"], be["checksums"])
+                  and torch.equal(bg["overflow"], be["overflow"]),
+                  f"shade {pipeline} {label} {cov}: the replayed burst differs from the eager burst")
+            lit = (bg["frames"] > 0).any(-1).flatten(1).float().mean(1)
+            check(bool((lit == 0).all()) if cov == "none" else bool((lit > 0).all()),
+                  f"shade {pipeline} {label} {cov}: burst lit shares {lit.tolist()}")
+            notes.append(f"{cov} {n}")
+            scenes[pipeline, label, cov] = sc
+        new = [g for g in tframe._GRAPHS.graphs() if not any(g is b for b in before)]
+        captures += [(f"{pipeline} {label}", g.capture_s, g.pool_bytes) for g in new]
+        phase("shade", f"{pipeline} {label}: Scene.render and a {N_SHADE_FRAMES}-frame burst replayed, byte-equal "
+              f"to eager render_frame and the eager burst at covered strips {', '.join(notes)}; graphs captured "
+              "(s, MB reserved): " + ", ".join(f"{c:.3f} s {b / 2**20:.1f}" for _, c, b in
+                                               captures[len(captures) - len(new):])
+              + f"  [{time.perf_counter() - t0:.1f} s]")
+    caps = [c for _, c, _ in captures]
+    mbs = [b / 2**20 for _, _, b in captures]
+    phase("shade", f"{len(captures)} graphs captured: capture (warm-up + capture) {min(caps):.3f}-{max(caps):.3f} s "
+          f"(median {float(np.median(caps)):.3f}), memory reserved per graph {min(mbs):.1f}-{max(mbs):.1f} MB "
+          f"(median {float(np.median(mbs)):.1f}; the largest: " + ", ".join(
+              f"{n} {b / 2**20:.1f}" for n, _, b in sorted(captures, key=lambda x: -x[2])[:3]) + f")  [{smi}]")
+
+    # The sharded frames at the three coverages.
+    t1 = time.perf_counter()
+    mesh = make_row_mesh([dev] * ROW_SHARDS)
+    for name, (knobs, needs_z, per_frame) in SHARD_CONFIGS.items():
+        c = dataclasses.replace(RenderConfig(), **knobs).resolve("shadow")
+        for cov in shade_time.COVERAGES:
+            g, t = scenes["shadow", "default", cov]._geom, scenes["shadow", "default", cov]._textures
+            single = render_frame(g, t, *view, pipeline="shadow", config=c, needs_z=needs_z)
+            eager = sharding._frame_sharded(g, t, tuple(view), pipeline="shadow", config=c, mesh=mesh,
+                                            backend="kernel", needs_z=needs_z, eager=True)
+            raster_cuda.reset_launches()
+            for _ in range(2):  # the capture, then a replay alone
+                got = render_frame_sharded(g, t, *view, pipeline="shadow", config=c, mesh=mesh, needs_z=needs_z)
+            torch.cuda.synchronize(dev)
+            record("shadow, row-sharded", raster_cuda.LAUNCHES)
+            for k in keys:
+                for other, what in ((eager, "eager sharded"), (single, "render_frame")):
+                    check((got[k] is None) == (other[k] is None) and (got[k] is None or torch.equal(got[k], other[k])),
+                          f"shade sharded {name} {cov}: replayed {k} differs from the {what} frame")
+    phase("shade", f"render_frame_sharded on {ROW_SHARDS} row shards of {dev} under {', '.join(SHARD_CONFIGS)}, "
+          f"replayed at the three coverages: frame, z, shadow, overflow byte-equal to the eager sharded frame and "
+          f"to render_frame  [{time.perf_counter() - t1:.1f} s]")
+
+    # Kernels per replayed shadow frame at each coverage: the chunk bodies
+    # past the covered count launch nothing.  (That the count-0 frame runs
+    # no body at all is checked on the shade alone below: a body's kernels
+    # vary a little with its chunk's size, the shade alone's count does
+    # not.)
+    def kernels(run, n):
+        events, _, _ = trace_kernels(lambda: [run() for _ in range(n)], dev)
+        ks = [name for name, cat, _ in events if cat == "kernel"]
+        return len(ks) / n, sum(bool(IF_TRACE.search(k)) for k in ks) / n
+
+    rows = []
+    for cov in shade_time.COVERAGES:
+        sc = scenes["shadow", "default", cov]
+        sc.render()
+        per, ifs = kernels(sc.render, N_SHADE_TRACED)
+        n = covered_strips(sc.render()["z"], sc.config)
+        slots = -(-(sc.config.width * sc.config.height // sc.config.strip_len) // sc.config.strip_batch) \
+            * sc.config.strip_batch
+        bounds = tframe.shade_chunks(slots, sc.config.strip_batch)
+        rows.append((cov, n, per, ifs, sum(start < n for start, _ in bounds)))
+    per_frame = [r[2] for r in rows]
+    check(per_frame[0] < per_frame[1] < per_frame[2] and all(ifs == len(bounds) for *_, ifs, _ in rows)
+          and [r[4] for r in rows] == [0, 1, len(bounds)],
+          f"shade profile: kernels per replayed frame {per_frame}, IF-node setters {[r[3] for r in rows]}, "
+          f"chunk bodies by the rule {[r[4] for r in rows]}, chunks {bounds}")
+    phase("shade", f"torch.profiler over {N_SHADE_TRACED} replayed shadow Scene.render frames per coverage: "
+          + "; ".join(f"{cov} ({n} covered strips, {ran} chunk bodies by the rule) {per:.0f} GPU kernels a frame "
+                      f"({ifs:.0f} IF-node setters)" for cov, n, per, ifs, ran in rows)
+          + f"; chunks {bounds}  [{smi}]")
+
+    # The replayed shade alone against covered strips; at count 0 each
+    # chunk adds only its predicate and its IF node's setter.
+    t2 = time.perf_counter()
+    res = shade_time.measure(pmodel, list(ALL_SLOTS_SHADE_MS), 10, dev, rules=(None, (1.0,)))
+    for pipeline, by_cov in res.items():
+        none = by_cov["none"]
+        check(none["graph"]["kernels"] - none["graph 1"]["kernels"] == 2 * (none["graph"]["chunks"] - 1),
+              f"shade {pipeline} alone at count 0: {none['graph']['kernels']} kernels under the chunk rule, "
+              f"{none['graph 1']['kernels']} under one chunk: a body ran")
+        phase("shade", f"{pipeline} shade alone (scripts/torch_shade_device_time.py; device ms per call, GPU "
+              f"kernels; the earlier shade over every slot {ALL_SLOTS_SHADE_MS[pipeline]:.3f} ms): " + "; ".join(
+                  f"{cov} ({r['covered_strips']} of {r['strips']} strips) chunked {r['graph']['device_ms']:.4f} ms "
+                  f"{r['graph']['kernels']:.0f} kernels {r['graph']['chunks_run']} of {r['graph']['chunks']} chunks, "
+                  f"one chunk of every slot {r['graph 1']['device_ms']:.4f} ms {r['graph 1']['kernels']:.0f} kernels"
+                  + (f", eager (every chunk) {r['eager']['device_ms']:.4f} ms" if "eager" in r else "")
+                  for cov, r in by_cov.items()) + f"  [{smi}]")
+    phase("shade", f"shade times took {time.perf_counter() - t2:.1f} s")
+
+
 def profile_phase(dev, config, smi, shadow_scene):
-    """Phase 13: the CLI's --profile trace (torch.profiler), the device's busy
+    """Phase 14: the CLI's --profile trace (torch.profiler), the device's busy
     and idle share in it, and the shadow frame by the stage profile before
     and after the profiler ran in this process.  Last, so that no other
     measurement follows the profiler in the process."""
@@ -1048,7 +1238,7 @@ def run_bench(*args):
 
 
 def bench_phase(dev, smi, record):
-    """Phase 14: the bench harness, in process (checked against
+    """Phase 15: the bench harness, in process (checked against
     render_burst) and as the command a user runs (fresh processes)."""
     from tiny_renderer_tpu_torch import RenderConfig, Scene, bench
     from tiny_renderer_tpu_torch.convert import to_tensor
@@ -1137,7 +1327,7 @@ def write_tga(path, rgb, rle=False):
 
 
 def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagship):
-    """Phase 12: the capacity scale.  The flagship stand-in is written to a
+    """Phase 13: the capacity scale.  The flagship stand-in is written to a
     temporary directory (model.obj and four TGAs, the texture RLE-coded),
     loaded by load_model on the native path and subdivided twice (81,536
     triangles).  K1 idx-only, depth-only and z+idx at capacity (int32 index
@@ -1318,6 +1508,13 @@ def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagshi
                   f"{ {m: v for m, v in got_burst.items() if v} }; "
                   + ("equal to the twin raster" if one[0] is r else "frame, z, shadow, overflow and burst "
                      "bit-identical to the one-band render"))
+    # K1 inside the replayed capacity bursts (torch.profiler, one 2-frame burst each).
+    for label in ("shadow row_bands=0", "shadow row_bands=4"):
+        sc, burst = runs[label]
+        events, _, _ = trace_kernels(lambda: burst(sc._geom, sc._textures, cams, ligs), dev)
+        durs = [ms for name, cat, ms in events if cat == "kernel" and K1_TRACE.search(name)]
+        phase("capacity", f"{label}: K1 inside the replayed burst (torch.profiler over {len(cams)} frames) "
+              f"{sum(durs) / len(cams):.4f} ms a frame in {len(durs) / len(cams):.0f} launches  [{smi}]")
     phase("capacity", f"scenes took {time.perf_counter() - t2:.1f} s")
 
     # -- (d) the dense backend through Scene and --raster dense --
@@ -1457,7 +1654,7 @@ def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagshi
 
 
 def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16):
-    """Phase 8: the scale-out path (parallel.sharding) at 800x800.  First
+    """Phase 9: the scale-out path (parallel.sharding) at 800x800.  First
     every kernel mode on a band of tile rows at a nonzero row offset, bit
     for bit against its twin and against the same rows of the full-frame
     launch; then the sharded frames of the flagship shadow scene on 5 row
@@ -1899,7 +2096,7 @@ def random_config(rng, width, height):
 
 
 def fuzz_phase(dev, record):
-    """Phase 9: seeded random knob compositions (random_config) on random
+    """Phase 10: seeded random knob compositions (random_config) on random
     scenes at 800x800, one draw per pipeline and two that take K2, each
     with its span caps as drawn (at 800x800 they bind: the frames flag
     overflow, the regime of flagged, deterministic drops) and with loose
@@ -1994,6 +2191,7 @@ def main() -> int:
     from tiny_renderer_tpu_torch.ops import mathlib as ml
     from tiny_renderer_tpu_torch.ops import raster_cuda, raster_probe
     from tiny_renderer_tpu_torch.ops.binning import bin_triangles
+    from tiny_renderer_tpu_torch.pipelines import graphs
     from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
     from tiny_renderer_tpu_torch.pipelines.frame import _render_burst_eager, make_burst_fn, render_frame
     from tiny_renderer_tpu_torch.pipelines.shaders import kernel_varying_spec, num_planes
@@ -2020,11 +2218,13 @@ def main() -> int:
     lap("device")
 
     # -- 2. build -------------------------------------------------------------
-    with ThreadPoolExecutor(2) as pool:  # one nvcc each, started together
-        builds = list(pool.map(lambda probe: raster_cuda.build(force=True, probe=probe), (False, True)))
-    (lib, seconds, log), (probe_lib, probe_seconds, _) = builds
+    with ThreadPoolExecutor(3) as pool:  # one nvcc each, started together
+        jobs = [pool.submit(raster_cuda.build, force=True, probe=probe) for probe in (False, True)]
+        jobs.append(pool.submit(raster_cuda.build, force=True, source=graphs.IF_SOURCE))
+        (lib, seconds, log), (probe_lib, probe_seconds, _), (if_lib, if_seconds, _) = [j.result() for j in jobs]
     phase("build", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s, "
-          f"and with -DRASTER_PROBE -> {probe_lib.name} in {probe_seconds:.3f} s")
+          f"and with -DRASTER_PROBE -> {probe_lib.name} in {probe_seconds:.3f} s; the replayed graphs' IF "
+          f"nodes ({graphs.IF_SOURCE.name}) -> {if_lib.name} in {if_seconds:.3f} s")
     for line in log.splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             phase("build", line.strip())
@@ -2404,16 +2604,20 @@ def main() -> int:
     graph_ms = graph_phase(dev, model, pmodel, smi, record)
     lap("graph")
 
-    # -- 8. parallel ----------------------------------------------------------
+    # -- 8. shade -------------------------------------------------------------
+    shade_phase(dev, pmodel, smi, record)
+    lap("shade")
+
+    # -- 9. parallel ----------------------------------------------------------
     par_ms, par_bounds, par_graph = parallel_phase(dev, model, RenderConfig(), smi, record, passes, compare,
                                                    cases, specs["planes-tex16"])
     lap("parallel")
 
-    # -- 9. fuzz --------------------------------------------------------------
+    # -- 10. fuzz --------------------------------------------------------------
     fuzz_phase(dev, record)
     lap("fuzz")
 
-    # -- 10. timing -----------------------------------------------------------
+    # -- 11. timing -----------------------------------------------------------
     def timed(key, label, kernel, twin):
         """(kernel ms paced by the host, twin ms, kernel ms on the device)."""
         ms = (time_launches(kernel, 200), time_launches(twin, 5), time_launches(kernel, 200, hold=True))
@@ -2546,20 +2750,20 @@ def main() -> int:
               f"the device)  [{smi}]")
     lap("timing")
 
-    # -- 11. entry ------------------------------------------------------------
+    # -- 12. entry ------------------------------------------------------------
     entry_phase(dev, model, RenderConfig(), smi, record, twin, pcams, pligs, scene,
                 pipe_runs["default"][1])
     lap("entry")
 
-    # -- 12. capacity ---------------------------------------------------------
+    # -- 13. capacity ---------------------------------------------------------
     cap_ms, cap_bounds = capacity_phase(dev, model, RenderConfig(), smi, record, passes, compare, grid, scene)
     lap("capacity")
 
-    # -- 13. profile ----------------------------------------------------------
+    # -- 14. profile ----------------------------------------------------------
     profile_phase(dev, RenderConfig(), smi, scene)
     lap("profile")
 
-    # -- 14. bench ------------------------------------------------------------
+    # -- 15. bench ------------------------------------------------------------
     bench_phase(dev, smi, record)
     lap("bench")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"

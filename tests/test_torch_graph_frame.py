@@ -1,8 +1,9 @@
 """Torch port: the static-shape frame that CUDA graphs capture, against JAX.
 
 The strip shade has static shapes and reads nothing on the host (the JAX
-module's while_loop over strip batches becomes one batch over every slot),
-so render_frame_jit and render_burst can capture it on the card.  On the
+module's while_loop over strip batches becomes chunks of slots, each under a
+device-side branch: test_torch_shade_chunks.py), so render_frame_jit and
+render_burst can capture it on the card.  On the
 CPU the same code runs eagerly.  Here, at 64x64: the port's _shade_strips
 against JAX's on the same inputs at strip_batch=8, where JAX walks several
 batches (coverage equal, fewer than 0.5% of pixels apart: JAX's compiled
@@ -91,14 +92,17 @@ def shade_both(pipeline, cfg, geom=GEOM, tex=TEX):
 @pytest.mark.parametrize("pipeline", PIPELINES)
 def test_static_shade_matches_jax_batches(pipeline):
     """strip_batch=8: JAX walks the covered strips in several while_loop
-    batches; the port shades every slot at once.  Same inputs, so the
-    frames agree but for FMA contractions in JAX's compiled loop (the 0.5%
-    budget).  (The whole frames against JAX's render_frame: the six other
+    batches; the port shades the chunks of frame.shade_chunks (several
+    batches each; eagerly every chunk runs, and the covered count reaches
+    past the first).  Same inputs, so the frames agree but for FMA
+    contractions in JAX's compiled loop (the 0.5% budget).  (The whole frames against JAX's render_frame: the six other
     pipelines in test_torch_pipelines.py, shadow in test_torch_frame.py.)"""
     cfg = CFG.resolve(pipeline)
     got, want, covered = shade_both(pipeline, CFG)
     strips = covered.reshape(-1, cfg.strip_len).any(-1).sum()
     assert 2 * cfg.strip_batch < strips < covered.size // cfg.strip_len  # several batches, not all
+    slots = covered.size // cfg.strip_len
+    assert tframe.shade_chunks(slots, cfg.strip_batch)[0][1] < strips  # more than one chunk
     assert (got > 0).any(-1).mean() > 0.02 and not ((got > 0).any(-1) & ~covered).any()
     assert (got != want).any(-1).mean() < 0.005
 

@@ -74,7 +74,9 @@ class RenderConfig:
     # Strip-compacted shading of covered strip_len-pixel strips.
     compact_shade: bool = True
     # Strips per shade batch in the JAX while_loop; the port's strip shade
-    # has ceil(strips / strip_batch) * strip_batch slots, shaded in one batch.
+    # has ceil(strips / strip_batch) * strip_batch slots, shaded in chunks
+    # of whole batches that a replayed graph skips past the covered count
+    # (pipelines.frame.shade_chunks).
     strip_batch: int = 512
     # Kernel-interpolated varying planes for the strip shade (K1 phase 2).
     strip_planes: bool = False

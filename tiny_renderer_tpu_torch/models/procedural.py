@@ -38,6 +38,21 @@ def make_plane(size: float = 0.8) -> ObjMesh:
     return _mesh(positions, tex_coords, normals, pos_idx, tex_idx, normal_idx)
 
 
+def make_grid(half: float = 1.5, n: int = 24) -> ObjMesh:
+    """A flat n x n grid of quads over [-half, half]^2 in the z=0 plane,
+    facing +z, uv following x and y: at half=1.5 it fills the frame of
+    the orbit camera near angle 0 (every strip covered), in triangles
+    small enough for the binning's span caps."""
+    xs = np.linspace(-half, half, n + 1, dtype=np.float32)
+    px, py = np.meshgrid(xs, xs)
+    positions = np.stack([px.ravel(), py.ravel(), np.zeros(px.size, np.float32)], -1)
+    tex_coords = (positions[:, :2] + half) / (2 * half)
+    v = np.arange((n + 1) ** 2, dtype=np.int32).reshape(n + 1, n + 1)
+    a, b, c, d = v[:-1, :-1].ravel(), v[:-1, 1:].ravel(), v[1:, :-1].ravel(), v[1:, 1:].ravel()
+    pos_idx = np.concatenate([np.stack([a, b, d], -1), np.stack([a, d, c], -1)])
+    return _mesh(positions, tex_coords, [[0, 0, 1]], pos_idx, pos_idx, np.zeros_like(pos_idx))
+
+
 def make_cube(size: float = 0.6) -> ObjMesh:
     """Axis-aligned cube with per-face normals and uv per face."""
     s = size / 2

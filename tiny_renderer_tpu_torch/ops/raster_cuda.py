@@ -107,15 +107,15 @@ def _nvcc() -> str:
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
-def build(force: bool = False, probe: bool = False):
-    """Compile csrc/raster.cu into BUILD_DIR (unless an up-to-date build is
-    cached there, or `force`); with `probe`, its probe build
-    (-DRASTER_PROBE, see the note in raster.cu).  Returns (library path,
-    seconds spent compiling, nvcc's output).  Raises RuntimeError with
-    nvcc's stderr if the build fails."""
+def build(force: bool = False, probe: bool = False, source: Path = SOURCE):
+    """Compile csrc/raster.cu (or another plain-C CUDA `source`) into
+    BUILD_DIR (unless an up-to-date build is cached there, or `force`); with
+    `probe`, its probe build (-DRASTER_PROBE, see the note in raster.cu).
+    Returns (library path, seconds spent compiling, nvcc's output).  Raises
+    RuntimeError with nvcc's stderr if the build fails."""
     flags = NVCC_FLAGS + (("-DRASTER_PROBE",) if probe else ())
-    digest = hashlib.sha256(SOURCE.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
-    name = f"{SOURCE.stem}{'_probe' if probe else ''}_{digest}"
+    digest = hashlib.sha256(source.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+    name = f"{source.stem}{'_probe' if probe else ''}_{digest}"
     lib, log = BUILD_DIR / f"{name}.so", BUILD_DIR / f"{name}.log"
     if lib.exists() and not force:
         return lib, 0.0, log.read_text() if log.exists() else ""
@@ -123,11 +123,11 @@ def build(force: bool = False, probe: bool = False):
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     t0 = time.perf_counter()
-    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(SOURCE)], capture_output=True, text=True)
+    proc = subprocess.run([_nvcc(), *flags, "-o", tmp, str(source)], capture_output=True, text=True)
     seconds = time.perf_counter() - t0
     if proc.returncode != 0:
         os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed to build {SOURCE.name}:\n{proc.stderr}")
+        raise RuntimeError(f"nvcc failed to build {source.name}:\n{proc.stderr}")
     os.replace(tmp, lib)
     out = proc.stdout + proc.stderr
     log.write_text(out)

@@ -51,7 +51,7 @@ from ..ops import raster_cuda
 from ..ops.binning import _round_up, bin_triangles, compact_scatter, incidence_cap
 from ..ops.raster_dense import rasterize_dense
 from ..ops.vertex import triangle_setup
-from . import shaders
+from . import graphs, shaders
 from .graphs import CapturedGraph, GraphCache, signature
 from .shaders import VARYING_SPECS, compute_varyings, kernel_varying_spec
 
@@ -502,6 +502,30 @@ def _shadow_for_shade(shadow_z, spec, config):
     return shaders.swizzle_plane(shadow_z, t) if t else shadow_z
 
 
+# The strip shade's chunks: the slots are shaded in chunks that end at
+# these fractions of the slot count (each end rounded up to strip_batch),
+# each chunk run only where the covered count reaches into it.  Chosen on
+# the H100 (PERF.md; scripts/torch_shade_device_time.py): a chunk
+# body costs a fixed ~0.3 ms (shadow; ~0.5 occlusion) of some 190-450
+# small kernels besides ~19 ns (~50) per slot, so a frame at the
+# stand-ins' ~12% strip coverage runs one body of an eighth of the slots,
+# one up to half the screen runs two, and a frame covering every strip
+# pays two fixed costs more than one chunk of every slot would.
+SHADE_CHUNK_ENDS = (1 / 8, 1 / 2, 1)
+
+
+def shade_chunks(slots, strip_batch):
+    """The strip shade's chunks of `slots` slots: (start, end) pairs, each
+    end a multiple of strip_batch (or `slots`) by SHADE_CHUNK_ENDS."""
+    bounds, start = [], 0
+    for frac in SHADE_CHUNK_ENDS:
+        end = min(slots, _round_up(max(1, round(frac * slots)), strip_batch))
+        if end > start:
+            bounds.append((start, end))
+            start = end
+    return bounds
+
+
 def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
                   y_offset=0, strip_mask=None, planes=None, planes_spec=()):
     """Strip-compacted shading: the shade runs on config.strip_len-pixel
@@ -512,10 +536,14 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     into ceil(n_strips / strip_batch) * strip_batch slots, JAX's batch
     quantum, and the slots past the covered count hold the n_strips fill.
     The JAX module walks the slots batch by batch in a while_loop that
-    stops after the covered count; here every slot is shaded in one batch,
-    the fill slots on a clamped strip, and their writes go to a spare row
-    that is cut off.  The per-fragment math is elementwise, so the pixels
-    are the JAX module's.
+    stops after the covered count.  Here the slots are cut into the chunks
+    of shade_chunks (whole batches), and each chunk runs under
+    graphs.device_if(count > its first slot): in a replayed graph the
+    device skips the chunks past the covered count, as JAX's loop stops.
+    Eagerly every chunk runs; a chunk's fill slots shade a clamped strip
+    and write to a spare row that is cut off, so a skipped chunk changes
+    nothing.  The per-fragment math is elementwise, so the pixels are the
+    JAX module's.
 
     idx may be a row slab of the frame (parallel.sharding): y_offset is
     the slab's first global row, so the pixel coords the shade sees are
@@ -546,40 +574,51 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
         cov = strip_mask.reshape(-1) >= 0
     else:
         cov = (strips >= 0).any(dim=1)
+    count = cov.sum(dtype=torch.int32)
     slots = -(-n_strips // config.strip_batch) * config.strip_batch
     ids = compact_scatter(
         cov, torch.arange(n_strips, dtype=torch.int64, device=dev), slots, n_strips
     )
-    safe = ids.clamp(max=n_strips - 1)
-
-    sidx = strips[safe]  # (slots, SL) winning-triangle ids
     lane = torch.arange(SL, device=dev)
-    base = (safe[:, None] * SL + lane[None, :]).clamp(max=HW - 1)
-    px = base % W
-    py = base // W + y_offset
-    if planes is None:
-        frag = _gather_fragments(setup, sidx, _GATHER_KEYS[pipeline], (px, py))
-        varys = compute_varyings(frag, VARYING_SPECS[pipeline])
-    else:
+    if planes is not None:
         vflat = planes.reshape(planes.shape[0], -1)
         if pad:
             vflat = torch.nn.functional.pad(vflat, (0, pad))
-        varys = _unpack_planes(planes_spec, vflat.reshape(-1, n_strips, SL)[:, safe])
-    varys["x"] = px
-    varys["y"] = py
-    if spec.two_pass:
-        varys["shadow_buffer"] = shadow_z
-    colors = spec.shade(varys, uniforms, textures, config)  # (slots, SL, 3) u8
-    covered = sidx >= 0
+        vstrips = vflat.reshape(-1, n_strips, SL)
     # Row n_strips is the spare the fill slots write to.
-    if not config.strip_pack_words:
+    if config.strip_pack_words:
+        acc = torch.zeros((n_strips + 1, SL), dtype=torch.int32, device=dev)
+    else:
         acc = torch.zeros((n_strips + 1, SL, 3), dtype=torch.uint8, device=dev)
-        acc[ids] = torch.where(covered[..., None], colors, 0).to(torch.uint8)
+
+    def chunk(cids):
+        safe = cids.clamp(max=n_strips - 1)
+        sidx = strips[safe]  # (chunk, SL) winning-triangle ids
+        base = (safe[:, None] * SL + lane[None, :]).clamp(max=HW - 1)
+        px = base % W
+        py = base // W + y_offset
+        if planes is None:
+            frag = _gather_fragments(setup, sidx, _GATHER_KEYS[pipeline], (px, py))
+            varys = compute_varyings(frag, VARYING_SPECS[pipeline])
+        else:
+            varys = _unpack_planes(planes_spec, vstrips[:, safe])
+        varys["x"] = px
+        varys["y"] = py
+        if spec.two_pass:
+            varys["shadow_buffer"] = shadow_z
+        colors = spec.shade(varys, uniforms, textures, config)  # (chunk, SL, 3) u8
+        covered = sidx >= 0
+        if config.strip_pack_words:
+            c32 = colors.to(torch.int32)
+            word = c32[..., 0] | (c32[..., 1] << 8) | (c32[..., 2] << 16)
+            acc[cids] = torch.where(covered, word, 0)
+        else:
+            acc[cids] = torch.where(covered[..., None], colors, 0).to(torch.uint8)
+
+    for start, end in shade_chunks(slots, config.strip_batch):
+        graphs.device_if(count > start, functools.partial(chunk, ids[start:end]))
+    if not config.strip_pack_words:
         return acc[:n_strips].reshape(-1, 3)[:HW].reshape(H, W, 3)
-    c32 = colors.to(torch.int32)
-    word = c32[..., 0] | (c32[..., 1] << 8) | (c32[..., 2] << 16)
-    acc = torch.zeros((n_strips + 1, SL), dtype=torch.int32, device=dev)
-    acc[ids] = torch.where(covered, word, 0)
     w = acc[:n_strips].reshape(-1)[:HW].reshape(H, W)
     return torch.stack([w & 0xFF, (w >> 8) & 0xFF, (w >> 16) & 0xFF], dim=-1).to(torch.uint8)
 

@@ -11,12 +11,18 @@ a private memory pool of its intermediates.
 
 A captured function may not read device values on the host or copy from
 pageable host memory: either makes the capture fail, and the failure is
-raised, never replaced by an eager run.
+raised, never replaced by an eager run.  Where JAX branches on a device
+value (``lax.cond``, the bounded ``lax.while_loop``), the captured function
+calls ``device_if``: under capture the branch becomes a conditional node of
+the graph, which the device decides at each replay.
 """
 
 from __future__ import annotations
 
 import collections
+import ctypes
+import functools
+import sys
 import threading
 import time
 
@@ -27,6 +33,104 @@ from ..ops import raster_cuda
 # Captured graphs kept alive at once by a GraphCache (least recently used
 # evicted first).
 GRAPH_CACHE_SIZE = 16
+
+
+# csrc/graph_if.cu: the IF nodes behind device_if.
+IF_SOURCE = raster_cuda.SOURCE.parent / "graph_if.cu"
+# .pooled: this thread's allocations go to the pool of the graph it captures;
+# .streams, .depth: device_if's body streams and nesting depth.
+_CAPTURE = threading.local()
+
+
+@functools.cache
+def _if_library():
+    """csrc/graph_if.cu, built with nvcc at first use, its functions'
+    argument types set."""
+    lib = ctypes.CDLL(str(raster_cuda.build(source=IF_SOURCE)[0]))
+    p = ctypes.c_void_p
+    lib.graph_if_begin.argtypes = [p, p, p]
+    lib.graph_if_end.argtypes = [p]
+    lib.graph_stream_create.argtypes = [ctypes.POINTER(p)]
+    lib.graph_if_load.argtypes = []
+    for f in (lib.graph_if_begin, lib.graph_if_end, lib.graph_stream_create, lib.graph_if_load):
+        f.restype = ctypes.c_int
+    lib.graph_error_string.argtypes = [ctypes.c_int]
+    lib.graph_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _if_check(err, what):
+    if err:
+        raise RuntimeError(f"device_if: {what} failed: {_if_library().graph_error_string(err).decode()}")
+
+
+# Body streams made before each capture: one per nesting depth of device_if.
+IF_DEPTHS = 3
+
+
+def _body_stream(dev, depth):
+    """This thread's stream for device_if's bodies at nesting `depth` on
+    `dev`, made by the library (never a stream a capture already uses)."""
+    streams = _CAPTURE.__dict__.setdefault("streams", {})
+    if (dev.index, depth) not in streams:
+        ptr = ctypes.c_void_p()
+        with torch.cuda.device(dev):
+            _if_check(_if_library().graph_stream_create(ctypes.byref(ptr)), "creating a body stream")
+        streams[dev.index, depth] = torch.cuda.ExternalStream(ptr.value, device=dev)
+    return streams[dev.index, depth]
+
+
+def _if_ready(dev):
+    """Build and load the IF-node library and make the body streams on
+    `dev` before a capture, so that none of it happens inside one."""
+    with torch.cuda.device(dev):
+        _if_check(_if_library().graph_if_load(), "loading the IF-node kernel")
+    for depth in range(IF_DEPTHS):
+        _body_stream(dev, depth)
+
+
+def device_if(pred, body):
+    """Run body() where the 0-d bool tensor `pred` is true, deciding on the
+    device: the counterpart of one branch of JAX's lax.cond, or of one
+    bounded iteration of a lax.while_loop.
+
+    Under the capture of a CapturedGraph on pred's device, body is recorded
+    into an IF node of the graph (csrc/graph_if.cu; CUDA 12.4+), so each
+    replay runs it only when pred holds then; nothing is read on the host.
+    The body is captured on a stream of its own; CapturedGraph makes its
+    allocations in the graph's memory pool.  Outside capture (CPU tensors,
+    or eagerly on the card) body runs unconditionally, so a caller's body
+    must leave its outputs right when it runs with pred false: it writes
+    in place into tensors made before the call (what a skipped body
+    leaves), and its work where pred is false goes where it is discarded.
+    A tensor allocated inside body holds garbage after a skipped replay
+    and may not be read after it.  pred must be its own 0-d bool tensor on
+    the device.  Raises RuntimeError when no conditional node can be made:
+    nothing falls back to running body unconditionally in a graph.
+    """
+    if not (pred.is_cuda and torch.cuda.is_current_stream_capturing()):
+        body()
+        return
+    if pred.dtype != torch.bool or pred.dim() != 0:
+        raise ValueError(f"device_if: pred must be a 0-d bool tensor, got {pred.dtype} {tuple(pred.shape)}")
+    if not getattr(_CAPTURE, "pooled", False):
+        raise RuntimeError(
+            "device_if: cannot capture a conditional graph node here: the body's allocations must go to "
+            "the graph's memory pool, as CapturedGraph routes them (torch._C."
+            f"_cuda_beginAllocateCurrentThreadToPool, torch {torch.__version__})")
+    lib = _if_library()
+    dev = pred.device
+    stream = _body_stream(dev, _CAPTURE.__dict__.get("depth", 0))
+    _if_check(lib.graph_if_begin(torch.cuda.current_stream(dev).cuda_stream, stream.cuda_stream,
+                                 pred.data_ptr()), "adding an IF node to the graph")
+    _CAPTURE.depth = _CAPTURE.__dict__.get("depth", 0) + 1
+    try:
+        with torch.cuda.stream(stream):
+            body()
+    finally:
+        _CAPTURE.depth -= 1
+        err = lib.graph_if_end(stream.cuda_stream)
+    _if_check(err, "ending the capture of an IF node's body")
 
 
 class CapturedGraph:
@@ -45,15 +149,19 @@ class CapturedGraph:
     and returns fn's outputs from the capture, which the next replay
     overwrites: callers hold `lock` around the call and the reads of the
     outputs.  Each replay adds the raster launches the capture recorded to
-    raster_cuda.LAUNCHES.  Attributes: outputs, launches (by mode, per
-    replay), capture_s (warm-up + capture seconds), pool_bytes (device
-    memory the capture reserved).
+    raster_cuda.LAUNCHES.  The capture's allocations go to a private pool
+    released with the graph; fn may branch with device_if.  Attributes:
+    outputs, launches (by mode, per replay), capture_s (warm-up + capture
+    seconds), pool_bytes (device memory the capture reserved).
     """
+
+    _pool = None  # (device index, id) of the pool the capture allocated in
 
     def __init__(self, fn, inputs, name, hold=(), device=None):
         self.lock = threading.Lock()
         self.hold = tuple(hold)
-        self.device = dev = torch.device(device) if device is not None else inputs[0].device
+        dev = torch.device(device) if device is not None else inputs[0].device
+        self.device = dev = dev if dev.index is not None else torch.device("cuda", torch.cuda.current_device())
         self.inputs = [x.to(dev, copy=True) for x in inputs]
         t0 = time.perf_counter()
         with torch.cuda.device(dev):
@@ -63,9 +171,19 @@ class CapturedGraph:
                 fn(*self.inputs)
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
+            _if_ready(dev)
             torch.cuda.empty_cache()  # as the capture's own entry does: the pool's growth is then its size
             reserved = torch.cuda.memory_reserved(dev)
             self.graph = torch.cuda.CUDAGraph()
+            # Every allocation this thread makes during the capture, on the
+            # capture stream and on device_if's body streams alike, goes to
+            # a private pool kept with the graph (ahead of the graph's own
+            # pool, which routes the capture stream only).
+            to_pool = getattr(torch._C, "_cuda_beginAllocateCurrentThreadToPool", None)
+            if to_pool is not None:
+                self._pool = (dev.index, torch.cuda.graph_pool_handle())
+                to_pool(*self._pool)
+            _CAPTURE.pooled = self._pool is not None
             try:
                 # The side stream is on `dev`; the default capture stream is
                 # made once, on whichever device was current then.
@@ -76,8 +194,16 @@ class CapturedGraph:
                 raise RuntimeError(
                     f"capturing {name} as a CUDA graph failed; a captured frame may not read "
                     f"device values on the host or copy from pageable host memory: {e}") from e
+            finally:
+                _CAPTURE.pooled = False
+                if self._pool is not None:
+                    torch._C._cuda_endAllocateToPool(*self._pool)
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+
+    def __del__(self, _finalizing=sys.is_finalizing, _release=getattr(torch._C, "_cuda_releasePool", None)):
+        if self._pool is not None and not _finalizing():
+            _release(*self._pool)
 
     def __call__(self, *inputs):
         with torch.cuda.device(self.device):

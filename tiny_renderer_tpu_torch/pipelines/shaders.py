@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import mathlib as ml
+from . import graphs
 
 # Each pipeline's varyings: (name, components, mode) with mode "interp"
 # (barycentric interpolation of 3 per-vertex values), "const" (per-triangle
@@ -520,9 +521,10 @@ def dedup_gather(table, flat_idx, cap_shift=3):
     slots (M indices), the table is read at those slots only, and each
     position takes its run's value back through the sort permutation.
     Where more than cap indices are unique, the plain gather's values are
-    taken instead: JAX's lax.cond on that flag is a torch.where here, so
-    the choice is made on the device (both sides are computed).  Equal
-    values either way."""
+    taken instead.  JAX's lax.cond on that flag is two graphs.device_if
+    bodies writing one output: in a replayed graph the device runs one
+    side.  Eagerly both run, the deduplicated side first, so the plain
+    gather's values stand.  Equal values either way."""
     shape = flat_idx.shape
     flat = flat_idx.reshape(-1).to(torch.int32)
     M = flat.shape[0]
@@ -531,12 +533,20 @@ def dedup_gather(table, flat_idx, cap_shift=3):
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=flat.device), keys[1:] != keys[:-1]])
     rank = torch.cumsum(first.to(torch.int32), 0, dtype=torch.int32) - 1
     overflow = rank[-1] >= cap
-    uniq = torch.zeros((cap + 1,), dtype=torch.int32, device=flat.device)
-    uniq[torch.where(first, rank, cap).clamp(max=cap).long()] = keys  # runs past the cap: the spare slot
-    fetched = table[uniq[:cap].long()]  # the one table-sized gather: cap rows
-    deduped = torch.empty((M,), dtype=table.dtype, device=table.device)
-    deduped[pos] = fetched[rank.clamp(max=cap - 1).long()]
-    return torch.where(overflow, table[flat.long()], deduped).reshape(shape)
+    out = torch.empty((M,), dtype=table.dtype, device=table.device)
+
+    def deduped():
+        uniq = torch.zeros((cap + 1,), dtype=torch.int32, device=flat.device)
+        uniq[torch.where(first, rank, cap).clamp(max=cap).long()] = keys  # runs past the cap: the spare slot
+        fetched = table[uniq[:cap].long()]  # the one table-sized gather: cap rows
+        out[pos] = fetched[rank.clamp(max=cap - 1).long()]
+
+    def plain():
+        torch.index_select(table, 0, flat, out=out)
+
+    graphs.device_if(~overflow, deduped)
+    graphs.device_if(overflow, plain)
+    return out.reshape(shape)
 
 
 def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
