@@ -192,13 +192,21 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              twin, device) beside their bounds, each pass's device ms, and
              the capacity frames (burst ms/frame and Scene.render latency)
              in turns with the flagship's shadow frame.
-14. profile — the CLI with --profile (torch.profiler): the trace's GPU
+14. trace  — the tracer (utils/timing.py) on the benchmark cell's 800x800
+             shadow scene: 8 Scene.render frames and a 60-frame
+             render_sequence byte-equal with the tracer off and on; the
+             drained frames numbered in turn, none dropped, each credited
+             to its call, every stamped covered count equal to the eager
+             strip shade's at the same pose; torch.profiler counts 7 mark
+             kernels a frame (8 a burst frame) and shows the program's
+             spans as host ranges.
+15. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
              profiler ran (the last phase timed in this process: only the
              bench phase's check follows, and its times come from fresh
              processes).
-15. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
+16. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
              In process: bench_config for diablo/shadow at 800x800 with 16
              frames, its K1 launches counted, its timed burst's checksums
              bit-equal to render_burst's on the same angles and the same
@@ -227,6 +235,7 @@ parameters.
 
 from __future__ import annotations
 
+import collections
 import dataclasses
 import gc
 import json
@@ -765,24 +774,124 @@ def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scen
         unregister_pipeline(name)
 
 
-def trace_kernels(run, dev):
-    """(GPU events of the chrome trace of run() under torch.profiler, the
-    device's busy ms and span ms over them).  Events: (name, cat, ms)."""
-    with tempfile.TemporaryDirectory() as tmp:
-        torch.cuda.synchronize(dev)
-        with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
-                                                torch.profiler.ProfilerActivity.CUDA]) as prof:
+def traced(run, dev):
+    """run() under torch.profiler, summarized by benchmark/tracing.py: the
+    kernels ((name, s) each) inside the host's window around run(), and the
+    device's busy time (the union of its intervals) and the window, in s."""
+    from benchmark import tracing
+
+    events, _ = tracing.profile(run, dev)
+    return tracing.summarize(events) or tracing.Trace(window_s=0.0, busy_s=0.0, kernels=[], device_ops=[],
+                                                      idle_gaps=[])
+
+
+# The tracer phase: the benchmark's cell, its interactive frames and one
+# burst of its mix, and the profiler's count of mark kernels a frame.
+TRACE_CELL = "diablo-shadow.orbit-burst"
+TRACE_SEED = 2_147_500_431
+TRACE_FRAMES = 8
+TRACE_MARKS = {"scene.render": 7, "scene.render_sequence": 8}
+
+
+def trace_phase(dev, smi):
+    """Phase 14: the tracer's stage stamps on the card at the benchmark
+    cell's 800^2 shadow frame (benchmark/configs, the seed's scene): TRACE_FRAMES frames
+    of Scene.render + get_frame_buffer along the mix's orbit and one
+    render_sequence of the mix's frames_per_call, first with the tracer
+    off, then on.  The frames byte-equal; the drained frames numbered in
+    turn, none dropped, each under the call that issued it with its marks'
+    labels; each frame's stamped covered count equal to the count the strip
+    shade gives eagerly (render_frame and the eager burst) at the same pose;
+    torch.profiler over a traced frame and a traced burst counts
+    TRACE_MARKS mark kernels a frame and holds the program's spans as host
+    ranges."""
+    from benchmark import harness, tracing
+    from benchmark.orbit import Orbit, host_vectors
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.pipelines.frame import _render_burst_eager, render_frame
+    from tiny_renderer_tpu_torch.utils import timing
+
+    cell = harness.find_cell(TRACE_CELL)
+    n_burst = cell.traffic["frames_per_call"]
+    sc = harness.build_scene(cell.config, TRACE_SEED, dev)[0]
+    config = sc.config.resolve(sc.pipeline_name)
+    orbit = Orbit(TRACE_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
+    cams, ligs = orbit.angles(0, n_burst)
+    poses = [host_vectors(float(c), float(li)) for c, li in zip(cams[:TRACE_FRAMES], ligs[:TRACE_FRAMES])]
+
+    def calls():
+        frames = []
+        for light, look_from in poses:
+            sc.set_camera(look_from, [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+            sc.set_light_direction(light)
+            sc.render()
+            frames.append(sc.get_frame_buffer())
+        return frames, sc.render_sequence(cams, ligs)
+
+    def eager_counts(run):
+        """The strip shade's covered counts of run()'s eager frames, in turn."""
+        got = []
+        with mock.patch.object(timing, "shade_count", lambda covered, starts: got.append(int(covered))):
             run()
-            torch.cuda.synchronize(dev)
-        prof.export_chrome_trace(f"{tmp}/trace.json")
-        with open(f"{tmp}/trace.json") as f:
-            events = json.load(f)["traceEvents"]
-    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-    if not gpu:
-        return [], 0.0, 0.0
-    busy = sum(e["dur"] for e in gpu) / 1e3
-    span = (max(e["ts"] + e["dur"] for e in gpu) - min(e["ts"] for e in gpu)) / 1e3
-    return [(e["name"], e["cat"], e["dur"] / 1e3) for e in gpu], busy, span
+        return got
+
+    check(not timing.tracing(), "the tracer is on before the trace phase")
+    timing.snapshot()
+    off, seq_off = calls()
+    timing.enable()
+    before = max([r.last for r in timing._RINGS.values()], default=0)
+    on, seq_on = calls()  # captures the traced frame and burst graphs
+    timing.snapshot()
+    on, seq_on = calls()  # replays them
+    snap = timing.snapshot()
+    check(all(np.array_equal(a, b) for a, b in zip(off, on)) and np.array_equal(seq_off, seq_on),
+          "frames differ with the tracer on")
+    frames = snap["frames"]
+    first = frames[0]["frame"] if frames else 0
+    check(len(frames) == TRACE_FRAMES + n_burst and snap["dropped"] == {"spans": 0, "frames": 0}
+          and [fr["frame"] for fr in frames] == list(range(first, first + len(frames))) and first > before,
+          f"drained frames {[fr['frame'] for fr in frames]} (from {before}), dropped {snap['dropped']}")
+    roots = {sp["id"]: sp["name"] for sp in snap["spans"] if sp["parent"] is None}
+    issuers = [roots.get(fr["call"]) for fr in frames]
+    check(issuers == ["scene.render"] * TRACE_FRAMES + ["scene.render_sequence"] * n_burst,
+          f"frames credited to {collections.Counter(issuers)}")
+    check(all(len(fr["labels"]) == TRACE_MARKS[who] and fr["stamps_ns"] == sorted(fr["stamps_ns"])
+              for fr, who in zip(frames, issuers)), "labels or stamps out of order")
+    views = [torch.from_numpy(np.stack([light, look_from, [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]]).astype(np.float32))
+             .to(dev) for light, look_from in poses]
+    want = eager_counts(lambda: [render_frame(sc._geom, sc._textures, *v, pipeline=sc.pipeline_name,
+                                              config=config, backend=sc.backend) for v in views])
+    want += eager_counts(lambda: _render_burst_eager(
+        sc._geom, sc._textures, to_tensor(cams, dev), to_tensor(ligs, dev), pipeline=sc.pipeline_name,
+        config=config, keep_frames=True, backend=sc.backend))
+    got = [fr["covered"] for fr in frames]
+    check(got == want, f"stamped covered counts {got} against the eager shade's {want}")
+
+    def profiled(run, n):
+        trace = tracing.profile(run, dev)[0]
+        marks = sum("mark_kernel" in e.get("name", "") for e in trace if e.get("cat") == "kernel")
+        ranges = {e["name"] for e in trace if e.get("cat") == "user_annotation"}
+        return marks / n, ranges
+
+    per_frame, ranges = profiled(lambda: [sc.render(), sc.get_frame_buffer()], 1)
+    per_burst, burst_ranges = profiled(lambda: sc.render_sequence(cams, ligs), n_burst)
+    timing.snapshot()
+    timing.disable()
+    timing.snapshot()
+    check((per_frame, per_burst) == (TRACE_MARKS["scene.render"], TRACE_MARKS["scene.render_sequence"]),
+          f"mark kernels a frame in the profiler's trace: {per_frame} (frame), {per_burst} (burst)")
+    check(ranges >= {"scene.render", "scene.stage", "graph.replay", "frame.clone", "scene.fetch"}
+          and burst_ranges >= {"scene.render_sequence", "sequence.issue", "sequence.copy", "graph.replay"},
+          f"the program's spans in the profiler's trace: {sorted(ranges | burst_ranges)}")
+    stages = {k: float(np.median([fr["stages"][k] for fr in frames[TRACE_FRAMES:]]))
+              for k in ("vertex", "binning", "raster", "shade")}
+    phase("trace", f"{TRACE_CELL} (seed {TRACE_SEED}): {TRACE_FRAMES} Scene.render frames and a {n_burst}-frame "
+          f"render_sequence byte-equal with the tracer off and on; frames {first}..{first + len(frames) - 1} "
+          f"drained in turn, 0 dropped; covered counts {min(got)}..{max(got)} equal to the eager shade's "
+          f"(chunks {sorted(collections.Counter(fr['chunks'] for fr in frames).items())}); profiler: "
+          f"{per_frame:.0f} mark kernels a frame, {per_burst:.0f} a burst frame, the spans as host ranges; "
+          f"burst stages (median device ms) " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+          + f"  [{smi}]")
 
 
 # The kernels of csrc/raster.cu as the trace names them: K1's instantiations
@@ -1000,18 +1109,18 @@ def graph_phase(dev, model, pmodel, smi, record):
             run = (lambda fn=fn, sc=sc: fn(sc._geom, sc._textures, cams[:N_GRAPH_TIMED], ligs[:N_GRAPH_TIMED]))
             n = N_GRAPH_TIMED
         run()
-        events, busy, span = trace_kernels(run, dev)
+        profiled = traced(run, dev)
         if inst == "fused":
-            durs = [ms for name, cat, ms in events if cat == "kernel" and K2_TRACE.search(name)]
+            durs = [1e3 * sec for name, sec in profiled.kernels if K2_TRACE.search(name)]
         else:
-            durs = [ms for name, cat, ms in events if cat == "kernel" and (m := K1_TRACE.search(name))
-                    and m.groups() == inst]
+            durs = [1e3 * sec for name, sec in profiled.kernels
+                    if (m := K1_TRACE.search(name)) and m.groups() == inst]
         graph_ms[mode] = float(np.mean(durs)) if durs else None
-        kernels = sum(cat == "kernel" for _, cat, _ in events)
         phase("graph", f"profiler over {n} replayed {pipeline} {'Scene.render' if mode == 'camera z+idx' else 'burst'}"
-              f" frames ({knobs or 'default config'}): {kernels} GPU kernels, "
-              f"{len(events) - kernels} copies/fills, device busy {busy:.3f} ms of a {span:.3f} ms span "
-              f"({1 - busy / span if span else float('nan'):.1%} idle); {mode}: {len(durs)} launches, "
+              f" frames ({knobs or 'default config'}): {len(profiled.kernels)} GPU kernels, "
+              f"device busy {1e3 * profiled.busy_s:.3f} ms of a {1e3 * profiled.window_s:.3f} ms window "
+              f"({1 - profiled.busy_s / profiled.window_s if profiled.window_s else float('nan'):.1%} idle); "
+              f"{mode}: {len(durs)} launches, "
               + (f"{graph_ms[mode]:.4f} ms per launch inside the graph" if durs else "not in the trace")
               + f"  [{smi}]")
     return graph_ms
@@ -1141,8 +1250,7 @@ def shade_phase(dev, pmodel, smi, record):
     # vary a little with its chunk's size, the shade alone's count does
     # not.)
     def kernels(run, n):
-        events, _, _ = trace_kernels(lambda: [run() for _ in range(n)], dev)
-        ks = [name for name, cat, _ in events if cat == "kernel"]
+        ks = [name for name, _ in traced(lambda: [run() for _ in range(n)], dev).kernels]
         return len(ks) / n, sum(bool(IF_TRACE.search(k)) for k in ks) / n
 
     rows = []
@@ -1185,7 +1293,7 @@ def shade_phase(dev, pmodel, smi, record):
 
 
 def profile_phase(dev, config, smi, shadow_scene):
-    """Phase 14: the CLI's --profile trace (torch.profiler), the device's busy
+    """Phase 15: the CLI's --profile trace (torch.profiler), the device's busy
     and idle share in it, and the shadow frame by the stage profile before
     and after the profiler ran in this process.  Last, so that no other
     measurement follows the profiler in the process."""
@@ -1200,12 +1308,14 @@ def profile_phase(dev, config, smi, shadow_scene):
         check(rc == 0, f"app.main --profile returned {rc}")
         with open(f"{tmp}/{TRACE_FILE}") as f:
             events = json.load(f)["traceEvents"]
-    # Device work in the trace: kernels, copies and fills (one stream, so
-    # they do not overlap); idle is the rest of their span.
-    gpu = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
+    # Device work in the trace: kernels, copies and fills (busy: the union
+    # of their intervals); idle is the rest of their span.
+    from benchmark import tracing
+
+    gpu = [e for e in events if e.get("cat") in tracing.DEVICE_CATS]
     kernels = sum(e["cat"] == "kernel" for e in gpu)
     check(kernels > 0, "the --profile trace holds no GPU kernel")
-    busy = sum(e["dur"] for e in gpu) / 1e3
+    busy = sum(b - a for a, b in tracing.union([(e["ts"], e["ts"] + e["dur"]) for e in gpu])) / 1e3
     span = (max(e["ts"] + e["dur"] for e in gpu) - min(e["ts"] for e in gpu)) / 1e3
     after = stage_breakdown(shadow_scene, iters=24)[1]["full"]
     phase("profile", f"app.main -s shadow --frames 4 --profile: rc 0; trace {len(events)} events, {kernels} "
@@ -1238,7 +1348,7 @@ def run_bench(*args):
 
 
 def bench_phase(dev, smi, record):
-    """Phase 15: the bench harness, in process (checked against
+    """Phase 16: the bench harness, in process (checked against
     render_burst) and as the command a user runs (fresh processes)."""
     from tiny_renderer_tpu_torch import RenderConfig, Scene, bench
     from tiny_renderer_tpu_torch.convert import to_tensor
@@ -1511,8 +1621,8 @@ def capacity_phase(dev, model, base, smi, record, passes, compare, grid, flagshi
     # K1 inside the replayed capacity bursts (torch.profiler, one 2-frame burst each).
     for label in ("shadow row_bands=0", "shadow row_bands=4"):
         sc, burst = runs[label]
-        events, _, _ = trace_kernels(lambda: burst(sc._geom, sc._textures, cams, ligs), dev)
-        durs = [ms for name, cat, ms in events if cat == "kernel" and K1_TRACE.search(name)]
+        profiled = traced(lambda: burst(sc._geom, sc._textures, cams, ligs), dev)
+        durs = [1e3 * sec for name, sec in profiled.kernels if K1_TRACE.search(name)]
         phase("capacity", f"{label}: K1 inside the replayed burst (torch.profiler over {len(cams)} frames) "
               f"{sum(durs) / len(cams):.4f} ms a frame in {len(durs) / len(cams):.0f} launches  [{smi}]")
     phase("capacity", f"scenes took {time.perf_counter() - t2:.1f} s")
@@ -1983,16 +2093,17 @@ def parallel_phase(dev, model, base, smi, record, passes, compare, cases, spec16
                 render_frame_sharded(g, t, *view, pipeline="shadow", config=ck, mesh=mesh, needs_z=False)
 
         run()
-        events, busy, span = trace_kernels(run, dev)
-        durs = [ms for name_, cat, ms in events if cat == "kernel" and pattern.search(name_)]
+        profiled = traced(run, dev)
+        durs = [1e3 * sec for name_, sec in profiled.kernels if pattern.search(name_)]
         per_frame = len(durs) / N_SHARD_TRACED
         graph_ms[key] = (sum(durs) / N_SHARD_TRACED, float(np.mean(durs)) if durs else None, per_frame)
-        kernels = sum(cat == "kernel" for _, cat, _ in events)
+        kernels = len(profiled.kernels)
+        busy, span = 1e3 * profiled.busy_s, 1e3 * profiled.window_s
         check(per_frame == (2 * ROW_SHARDS if key == "banded" else ROW_SHARDS),
               f"{key}: {len(durs)} launches in the trace of {N_SHARD_TRACED} replayed sharded frames")
         phase("parallel", f"profiler over {N_SHARD_TRACED} replayed {ROW_SHARDS}-shard shadow frames "
               f"({knobs or 'default config'}, no z): {kernels / N_SHARD_TRACED:.0f} GPU kernels a frame, "
-              f"device busy {busy:.3f} ms of a {span:.3f} ms span ({1 - busy / span if span else float('nan'):.1%} "
+              f"device busy {busy:.3f} ms of a {span:.3f} ms window ({1 - busy / span if span else float('nan'):.1%} "
               f"idle); {'K1' if key == 'banded' else 'K2'}: {per_frame:.0f} launches a frame, "
               f"{graph_ms[key][0]:.4f} ms a frame, {graph_ms[key][1]:.4f} ms per launch inside the graphs  [{smi}]")
     # The banded launches of one sharded frame: each shard's light pass
@@ -2759,11 +2870,15 @@ def main() -> int:
     cap_ms, cap_bounds = capacity_phase(dev, model, RenderConfig(), smi, record, passes, compare, grid, scene)
     lap("capacity")
 
-    # -- 14. profile ----------------------------------------------------------
+    # -- 14. trace ------------------------------------------------------------
+    trace_phase(dev, smi)
+    lap("trace")
+
+    # -- 15. profile ----------------------------------------------------------
     profile_phase(dev, RenderConfig(), smi, scene)
     lap("profile")
 
-    # -- 15. bench ------------------------------------------------------------
+    # -- 16. bench ------------------------------------------------------------
     bench_phase(dev, smi, record)
     lap("bench")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"

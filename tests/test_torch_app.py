@@ -8,6 +8,7 @@ default pipeline of Scene and the CLI (the same as the JAX package's)."""
 import ctypes.util
 import json
 import math
+import re
 import struct
 import subprocess
 import sys
@@ -30,6 +31,7 @@ from tiny_renderer_tpu_torch.examples import custom_pipeline as example
 from tiny_renderer_tpu_torch.models.procedural import make_textures, make_uv_sphere
 from tiny_renderer_tpu_torch.pipelines import frame as tframe
 from tiny_renderer_tpu_torch.pipelines.profile import STAGES, print_stage_breakdown, stage_breakdown
+from tiny_renderer_tpu_torch.utils import timing
 from tiny_renderer_tpu_torch.utils.png import downsample_box, png_bytes
 from tiny_renderer_tpu_torch.utils.timing import TRACE_FILE, FpsCounter, StageTimer, profile_trace
 
@@ -303,7 +305,11 @@ def test_main_timing_and_profile(assets, tmp_path, capsys):
     assert rc == 0
     out = capsys.readouterr().out
     assert "frame time on cpu" in out and "per-stage time of 'default'" in out
-    assert (tmp_path / "prof" / TRACE_FILE).stat().st_size > 0
+    # The tracer's report (its spans: one scene.render a frame), then off.
+    assert "traced run" in out and out.index("traced run") < out.index("per-stage time")
+    assert re.search(r"scene\.render +2 spans", out) and not timing.tracing()
+    events = json.loads((tmp_path / "prof" / TRACE_FILE).read_text())["traceEvents"]
+    assert {"scene.render", "scene.stage"} <= {e["name"] for e in events if e.get("cat") == "user_annotation"}
 
 
 def test_default_pipeline_matches_jax():

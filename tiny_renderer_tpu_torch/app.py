@@ -12,8 +12,10 @@ them); ``--save`` writes the last as PNG, ``--save-seq DIR`` renders the
 orbit as one burst and writes every frame, ``--dump-z``/``--dump-shadow``
 write the debug buffer views.  ``--interactive`` opens a window (X11, else
 matplotlib) when a display exists, else falls back to headless.
-``--timing`` prints the frame times and a per-stage breakdown
-(pipelines/profile.py), ``--profile DIR`` a torch.profiler trace.
+``--timing`` turns the tracer of utils/timing.py on for the run and prints
+what it recorded (the frames' device stage ms, host spans, counters), the
+frame times and a per-stage breakdown (pipelines/profile.py); ``--profile
+DIR`` writes a torch.profiler trace, which holds the program's spans.
 
 ``-s`` takes the seven built-in pipelines and any registered with
 ``register_pipeline`` before ``build_arg_parser``.  ``--backend cuda`` (the
@@ -43,6 +45,7 @@ from .config import RenderConfig
 from .models.procedural import make_textures, make_uv_sphere
 from .pipelines.frame import BACKENDS, PIPELINES
 from .scene import Scene
+from .utils import timing
 from .utils.png import downsample_box, write_png
 from .utils.timing import FpsCounter, profile_trace
 
@@ -115,8 +118,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                          "instead of copying frame N-1 to the host while "
                          "frame N renders (one frame of display latency)")
     ap.add_argument("--timing", action="store_true",
-                    help="print a per-frame wall-time summary and a "
-                         "per-stage breakdown at exit")
+                    help="trace the run (device stage ms, host spans, "
+                         "counters) and print it, a per-frame wall-time "
+                         "summary and a per-stage breakdown at exit")
     ap.add_argument("--profile", metavar="DIR",
                     help="write a torch.profiler Chrome trace of the run to DIR")
     ap.add_argument("--ssaa", type=int, default=1, metavar="N",
@@ -180,6 +184,15 @@ def _angles_to_vectors(camera_angle: float, light_angle: float):
     return look_from, np.zeros(3, np.float32), np.array([0.0, 1.0, 0.0], np.float32), light
 
 
+def print_trace(out=print):
+    """--timing: print what the tracer recorded (timing.report) and turn it
+    off, so that the stage breakdown after it runs untraced."""
+    if timing.tracing():
+        out("traced run (utils/timing.py):")
+        out(timing.report(timing.snapshot()))
+        timing.disable()
+
+
 def run_headless(scene: Scene, args) -> np.ndarray:
     cfg = scene.config
     fps = FpsCounter(enabled=not args.no_fps)
@@ -208,6 +221,7 @@ def run_headless(scene: Scene, args) -> np.ndarray:
             f"min {1e3 * min(steady):.2f} ms over {len(steady)} frames "
             f"(first frame incl. kernel build: {1e3 * times[0]:.0f} ms)"
         )
+        print_trace()
         from .pipelines.profile import print_stage_breakdown
 
         print_stage_breakdown(scene)
@@ -427,13 +441,21 @@ def main(argv=None) -> int:
         config = dataclasses.replace(config, width=config.width * ssaa, height=config.height * ssaa)
     scene = Scene(model, args.pipeline, config, device=args.backend, backend=args.raster)
 
-    with profile_trace(args.profile):
-        if args.save_seq:
-            frame = run_sequence(scene, args, ssaa=ssaa)
-        elif args.interactive:
-            frame = run_interactive(scene, args)
-        else:
-            frame = run_headless(scene, args)
+    if args.timing:
+        timing.enable()
+    try:
+        with profile_trace(args.profile):
+            if args.save_seq:
+                frame = run_sequence(scene, args, ssaa=ssaa)
+            elif args.interactive:
+                frame = run_interactive(scene, args)
+            else:
+                frame = run_headless(scene, args)
+        if args.timing:
+            print_trace()
+    finally:
+        if args.timing:
+            timing.disable()
 
     if args.save and frame is not None:
         write_png(args.save, downsample_box(frame, ssaa))

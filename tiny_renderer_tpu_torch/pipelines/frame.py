@@ -51,6 +51,7 @@ from ..ops import raster_cuda
 from ..ops.binning import _round_up, bin_triangles, compact_scatter, incidence_cap
 from ..ops.raster_dense import rasterize_dense
 from ..ops.vertex import triangle_setup
+from ..utils import timing
 from . import graphs, shaders
 from .graphs import CapturedGraph, GraphCache, signature
 from .shaders import VARYING_SPECS, compute_varyings, kernel_varying_spec
@@ -327,12 +328,14 @@ def _rasterize(setup, config, backend="kernel", spec=(), emit_idx=True, emit_z=T
     H, W = window.height, window.width
     if backend == "dense":
         z, idx = rasterize_dense(setup, H, W, config.tri_block, y_offset=y0)
+        timing.mark("raster")
         return (z if emit_z else None, idx if emit_idx else None, None, None,
                 torch.zeros((), dtype=torch.bool, device=z.device))
     plan = _band_plan(setup, config) if rows is None else [(row_off, window.tiles_y, window)]
     outs, flags = [], []
     for t0, _, band in plan:
         records, tris, starts, ovf = bin_triangles(setup, band, spec, row_tile_offset=t0)
+        timing.mark("binning")
         outs.append(raster_cuda.rasterize(
             records, tris, starts,
             tile_h=band.tile_h, tile_w=band.tile_w,
@@ -340,6 +343,7 @@ def _rasterize(setup, config, backend="kernel", spec=(), emit_idx=True, emit_z=T
             spec=spec, emit_idx=emit_idx, emit_z=emit_z, emit_strips=emit_strips,
             idx_dtype=_idx_dtype(setup, band),
         ))
+        timing.mark("raster")
         flags.append(ovf)
     z, idx, varys, strips = zip(*outs)
     z, idx, varys, strips = _cat(z), _cat(idx), _cat(varys, dim=1), _cat(strips)  # varys: planes first
@@ -401,11 +405,13 @@ def _fused_raster(setup1, setup, config, rows=None, y0=0):
     H, W = window.height, window.width
     r1, t1, s1, ovfb1 = bin_triangles(setup1, window, row_tile_offset=row_off)
     r2, t2, s2, ovfb2 = bin_triangles(setup, window, row_tile_offset=row_off)
+    timing.mark("binning")
     shadow_z, idx = raster_cuda.rasterize_fused(
         r1, t1, s1, r2, t2, s2,
         tile_h=window.tile_h, tile_w=window.tile_w,
         tiles_y=window.tiles_y, tiles_x=window.tiles_x, row_tile_offset=row_off,
     )
+    timing.mark("raster")
     return (
         shadow_z[:H, :W], idx[:H, :W],
         ovfb1 | setup1["coord_overflow"], ovfb2 | setup["coord_overflow"],
@@ -615,8 +621,10 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
         else:
             acc[cids] = torch.where(covered[..., None], colors, 0).to(torch.uint8)
 
-    for start, end in shade_chunks(slots, config.strip_batch):
+    bounds = shade_chunks(slots, config.strip_batch)
+    for start, end in bounds:
         graphs.device_if(count > start, functools.partial(chunk, ids[start:end]))
+    timing.shade_count(count, [start for start, _ in bounds])
     if not config.strip_pack_words:
         return acc[:n_strips].reshape(-1, 3)[:HW].reshape(H, W, 3)
     w = acc[:n_strips].reshape(-1)[:HW].reshape(H, W)
@@ -768,6 +776,7 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
     if spec.two_pass:
         setup1 = triangle_setup(geom, u1, config, matrix_key="shadow_matrix", cull=False)
     setup = triangle_setup(geom, uniforms, config, needs=spec.needs)
+    timing.mark("vertex")
 
     if _use_fused_raster(spec, config, backend, setup, pspec, needs_z):
         shadow_z, idx, ovf1, ovf2 = _fused_raster(setup1, setup, config)
@@ -784,7 +793,9 @@ def render_frame(geom, textures, light_direction, look_from, look_at, up, *,
                                                 backend, shadow_z, needs_z)
     # overflow: a binning coverage cap was hit, or triangles beyond the
     # int32 exactness envelope were dropped.
-    return {"frame": frame, "z": z, "shadow": shadow_z, "overflow": ovf1 | ovf2}
+    overflow = ovf1 | ovf2
+    timing.mark("shade")
+    return {"frame": frame, "z": z, "shadow": shadow_z, "overflow": overflow}
 
 
 def _add_const_gather(frag, kspec, vspec, setup, idx):
@@ -811,17 +822,27 @@ def _graph_key(kind, pipeline, config, backend, gen, geom, textures, inputs):
     """The key of a captured graph: what JAX's jit keys on (pipeline, the
     resolved config, backend, the registration generation), plus the
     device, shapes, strides and dtypes of the inputs, and the addresses of
-    the geometry and texture tensors the graph reads in place."""
-    return (kind, pipeline, config, backend, gen, signature(geom), signature(textures),
-            signature(inputs, addresses=False))
+    the geometry and texture tensors the graph reads in place; with the
+    tracer on, "traced" at its end (a graph with the stage marks of its own,
+    so that one captured with the tracer off is never altered)."""
+    key = (kind, pipeline, config, backend, gen, signature(geom), signature(textures),
+           signature(inputs, addresses=False))
+    return key + ("traced",) if timing.tracing() else key
+
+
+def _captures(device):
+    """Frames and bursts on `device` are captured and replayed as CUDA
+    graphs: on CUDA devices; on the CPU they run eagerly."""
+    return device.type == "cuda"
 
 
 def _capture(kind, fn, inputs, pipeline, config, backend, gen, geom, textures):
-    """The cached graph of fn(*inputs) on the geometry and textures."""
+    """The cached graph of fn(*inputs) on the geometry and textures, its
+    stage marks recorded when the tracer is on."""
     key = _graph_key(kind, pipeline, config, backend, gen, geom, textures, inputs)
     hold = tuple(geom.values()) + tuple(textures.values())
     return _GRAPHS.get(key, lambda: CapturedGraph(
-        fn, inputs, f"the {kind} of pipeline {pipeline!r}", hold=hold))
+        fn, inputs, f"the {kind} of pipeline {pipeline!r}", hold=hold, marked=True))
 
 
 def render_frame_jit(geom, textures, light_direction, look_from, look_at, up, *, pipeline,
@@ -834,21 +855,23 @@ def render_frame_jit(geom, textures, light_direction, look_from, look_at, up, *,
     re-registered pipeline gets a graph of its own) and replayed after:
     the four view vectors are copied into the graph's inputs, and the
     outputs are cloned, so a later replay cannot overwrite what the caller
-    holds.  A capture that fails raises, naming the pipeline.  On CPU
-    tensors render_frame runs eagerly: the same code."""
+    holds (span frame.clone).  A capture that fails raises, naming the
+    pipeline.  On CPU tensors render_frame runs eagerly: the same code."""
     views = (light_direction, look_from, look_at, up)
     config = config.resolve(pipeline)
-    if light_direction.device.type != "cuda":
+    if not _captures(light_direction.device):
         return render_frame(geom, textures, *views, pipeline=pipeline, config=config,
                             backend=backend)
 
     def fn(*v):
+        timing.mark("start")
         return render_frame(geom, textures, *v, pipeline=pipeline, config=config, backend=backend)
 
     graph = _capture("frame", fn, views, pipeline, config, backend, gen, geom, textures)
     with graph.lock:
         out = graph(*views)
-        return {k: None if v is None else v.clone() for k, v in out.items()}
+        with timing.span("frame.clone"):
+            return {k: None if v is None else v.clone() for k, v in out.items()}
 
 
 def make_frame_fn(pipeline, config, backend="kernel"):
@@ -911,7 +934,7 @@ def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
     copies the checksum and overflow (and the frame) out, all
     asynchronously.  On CPU tensors the frames render eagerly."""
     config = config.resolve(pipeline)
-    if camera_angles.device.type != "cuda":
+    if not _captures(camera_angles.device):
         return _render_burst_eager(geom, textures, camera_angles, light_angles, pipeline=pipeline,
                                    config=config, keep_frames=keep_frames, backend=backend)
     gen = registry_generation(pipeline) if gen is None else gen
@@ -919,7 +942,10 @@ def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
     n, dev = angles.shape[0], angles.device
 
     def fn(a):
-        return _burst_frame(geom, textures, a, pipeline=pipeline, config=config, backend=backend)
+        timing.mark("start")
+        out = _burst_frame(geom, textures, a, pipeline=pipeline, config=config, backend=backend)
+        timing.mark("shade")  # after the checksum: the frame's end
+        return out
 
     graph = _capture("burst frame", fn, (angles[0],), pipeline, config, backend, gen, geom, textures)
     stats = torch.empty((n, 2), dtype=torch.int64, device=dev)

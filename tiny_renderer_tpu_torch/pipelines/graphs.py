@@ -25,14 +25,23 @@ import functools
 import sys
 import threading
 import time
+import weakref
 
 import torch
 
 from ..ops import raster_cuda
+from ..utils import timing
 
 # Captured graphs kept alive at once by a GraphCache (least recently used
 # evicted first).
 GRAPH_CACHE_SIZE = 16
+# Every CapturedGraph alive (pool_bytes).
+_ALIVE = weakref.WeakSet()
+
+
+def pool_bytes():
+    """Device memory the captures of the graphs alive reserved."""
+    return sum(g.pool_bytes for g in list(_ALIVE))
 
 
 # csrc/graph_if.cu: the IF nodes behind device_if.
@@ -150,14 +159,24 @@ class CapturedGraph:
     overwrites: callers hold `lock` around the call and the reads of the
     outputs.  Each replay adds the raster launches the capture recorded to
     raster_cuda.LAUNCHES.  The capture's allocations go to a private pool
-    released with the graph; fn may branch with device_if.  Attributes:
-    outputs, launches (by mode, per replay), capture_s (warm-up + capture
-    seconds), pool_bytes (device memory the capture reserved).
+    released with the graph; fn may branch with device_if.  `marked`: a
+    frame graph, whose timing.mark calls record stage stamps when the
+    tracer is on at the capture.  Attributes: outputs, launches (by mode,
+    per replay), marks (timing.FrameMarks, or None), capture_s (warm-up +
+    capture seconds), pool_bytes (device memory the capture reserved).
+    Spans: graph.capture (warm-up and capture), graph.replay (the input
+    copies and the launch).
     """
 
     _pool = None  # (device index, id) of the pool the capture allocated in
+    marks = None
 
-    def __init__(self, fn, inputs, name, hold=(), device=None):
+    def __init__(self, fn, inputs, name, hold=(), device=None, marked=False):
+        with timing.span("graph.capture"):
+            self._capture(fn, inputs, name, hold, device, marked)
+        _ALIVE.add(self)
+
+    def _capture(self, fn, inputs, name, hold, device, marked):
         self.lock = threading.Lock()
         self.hold = tuple(hold)
         dev = torch.device(device) if device is not None else inputs[0].device
@@ -172,6 +191,7 @@ class CapturedGraph:
             torch.cuda.current_stream(dev).wait_stream(side)
             torch.cuda.synchronize(dev)
             _if_ready(dev)
+            ring = timing.frame_ring(dev) if marked else None
             torch.cuda.empty_cache()  # as the capture's own entry does: the pool's growth is then its size
             reserved = torch.cuda.memory_reserved(dev)
             self.graph = torch.cuda.CUDAGraph()
@@ -187,7 +207,7 @@ class CapturedGraph:
             try:
                 # The side stream is on `dev`; the default capture stream is
                 # made once, on whichever device was current then.
-                with raster_cuda.recording() as self.launches, \
+                with raster_cuda.recording() as self.launches, timing.marking(ring) as self.marks, \
                         torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
                     self.outputs = fn(*self.inputs)
             except RuntimeError as e:
@@ -198,6 +218,8 @@ class CapturedGraph:
                 _CAPTURE.pooled = False
                 if self._pool is not None:
                     torch._C._cuda_endAllocateToPool(*self._pool)
+        if self.marks is not None and not self.marks.labels:
+            self.marks = None
         self.capture_s = time.perf_counter() - t0
         self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
 
@@ -206,12 +228,20 @@ class CapturedGraph:
             _release(*self._pool)
 
     def __call__(self, *inputs):
+        with timing.span("graph.replay"):
+            if self.marks is None:
+                self._launch(inputs)
+            else:
+                self.marks.ring.issue(self.marks, lambda: self._launch(inputs))
+        raster_cuda.replayed(self.launches)
+        return self.outputs
+
+    def _launch(self, inputs):
+        """Copy `inputs` into the static inputs and replay the graph."""
         with torch.cuda.device(self.device):
             for static, x in zip(self.inputs, inputs):
                 static.copy_(x, non_blocking=True)
             self.graph.replay()
-        raster_cuda.replayed(self.launches)
-        return self.outputs
 
 
 class GraphCache:
@@ -224,15 +254,19 @@ class GraphCache:
         self._lock = threading.Lock()
 
     def get(self, key, capture):
-        """The graph under `key`, captured by capture() on a miss."""
+        """The graph under `key`, captured by capture() on a miss.  Counts
+        (timing.count) graph.captures, graph.hits and graph.evictions."""
         with self._lock:
             graph = self._graphs.get(key)
             if graph is None:
+                timing.count("graph.captures")
                 graph = capture()
                 self._graphs[key] = graph
                 while len(self._graphs) > self.size:
+                    timing.count("graph.evictions")
                     self._graphs.popitem(last=False)
             else:
+                timing.count("graph.hits")
                 self._graphs.move_to_end(key)
             return graph
 

@@ -3,7 +3,11 @@
 
 Geometry and textures live on the scene's device; `render()` runs one frame
 there.  The getters fetch and convert like the reference (u8 casts,
-vertical flip at presentation, scene.rs:92-125).
+vertical flip at presentation, scene.rs:92-125).  The public calls record
+the tracer's host spans (utils/timing.py): scene.render (scene.stage, then
+the frame graph's graph.replay and frame.clone), scene.fetch (fetch.wait,
+fetch.copy) and scene.render_sequence (sequence.issue, sequence.wait,
+sequence.copy; the counter sequence.frames: the frames it returned).
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ from .ops import mathlib as ml
 from .ops.vertex import expand_geometry
 from .pipelines.frame import (
     BACKENDS, PIPELINES, make_burst_fn, make_frame_fn, prepack_textures)
+from .utils import timing
 
 
 class Scene:
@@ -98,14 +103,16 @@ class Scene:
     def render(self):
         """Render a frame at the scene state (on CUDA the frame function's
         replayed graph): dict(frame, z, shadow, overflow) on the device."""
-        vecs = np.stack([self._light_direction, self._look_from, self._look_at, self._up])
-        staged = torch.from_numpy(vecs)
-        if self.device.type == "cuda":
-            # One non-blocking copy from pinned memory: the host does not
-            # wait for the device (a pageable copy would).
-            staged = staged.pin_memory()
-        self._out = self._frame_fn(self._geom, self._textures,
-                                   *staged.to(self.device, non_blocking=True))
+        with timing.span("scene.render"):
+            with timing.span("scene.stage"):
+                vecs = np.stack([self._light_direction, self._look_from, self._look_at, self._up])
+                staged = torch.from_numpy(vecs)
+                if self.device.type == "cuda":
+                    # One non-blocking copy from pinned memory: the host does not
+                    # wait for the device (a pageable copy would).
+                    staged = staged.pin_memory()
+                views = staged.to(self.device, non_blocking=True)
+            self._out = self._frame_fn(self._geom, self._textures, *views)
         return self._out
 
     def synchronize(self):
@@ -119,15 +126,22 @@ class Scene:
     def render_sequence(self, camera_angles, light_angles) -> np.ndarray:
         """Render an orbit burst (src/app.rs:200-207) and return the frames as
         (N, H, W, 3) u8, presentation-flipped like get_frame_buffer."""
-        burst = make_burst_fn(self.pipeline_name, self.config, keep_frames=True,
-                              backend=self.backend)
-        out = burst(
-            self._geom, self._textures,
-            to_tensor(np.asarray(camera_angles, np.float32), self.device),
-            to_tensor(np.asarray(light_angles, np.float32), self.device),
-        )
-        self._warn_if_overflowed(out["overflow"])
-        return out["frames"].cpu().numpy()[:, ::-1]
+        with timing.span("scene.render_sequence"):
+            with timing.span("sequence.issue"):
+                burst = make_burst_fn(self.pipeline_name, self.config, keep_frames=True,
+                                      backend=self.backend)
+                out = burst(
+                    self._geom, self._textures,
+                    to_tensor(np.asarray(camera_angles, np.float32), self.device),
+                    to_tensor(np.asarray(light_angles, np.float32), self.device),
+                )
+            with timing.span("sequence.wait"):
+                self._warn_if_overflowed(out["overflow"])
+            with timing.span("sequence.copy"):
+                frames = out["frames"].cpu().numpy()[:, ::-1]
+            timing.count("sequence.frames", len(frames))
+            timing.drain()
+        return frames
 
     @property
     def overflowed(self) -> bool:
@@ -137,9 +151,14 @@ class Scene:
     def get_frame_buffer(self) -> np.ndarray:
         """(H, W, 3) u8, vertically flipped so row 0 is the top of the world
         (scene.rs:92-97)."""
-        out = self._require_render()
-        self._warn_if_overflowed(out["overflow"])
-        return out["frame"].cpu().numpy()[::-1]
+        with timing.span("scene.fetch"):
+            out = self._require_render()
+            with timing.span("fetch.wait"):
+                self._warn_if_overflowed(out["overflow"])
+            with timing.span("fetch.copy"):
+                frame = out["frame"].cpu().numpy()[::-1]
+            timing.drain()
+        return frame
 
     def get_z_buffer(self) -> np.ndarray:
         """Grayscale u8 debug view of the z-buffer (scene.rs:101-111)."""
