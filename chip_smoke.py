@@ -10,6 +10,14 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              their probe build and the graphs' IF nodes (csrc/graph_if.cu)
              beside them, all three at once, and print ptxas's
              registers/spills for every instantiation.
+2b. vertex — csrc/vertex.cu (the vertex layer's prepare and setup kernels):
+             each prepare's uniforms and every triangle_setup field
+             bit-equal to the plain torch versions on the card over 64
+             orbit, random and near-degenerate poses, every pipeline's
+             needs and glow's attr:*; Scene.render of every pipeline and a
+             60-frame burst byte-equal to the plain layer's eager frames;
+             vertex launches per replay; kernels a frame and the layer's
+             time against the plain layer's (vertex_phase).
 3. kernel  — every kernel mode against its plain torch twin on seeded random
              soups, the depth tie case, the flagship scene's two passes and
              five adversarial screen-space scenes (large and huge triangles,
@@ -236,6 +244,7 @@ parameters.
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import gc
 import json
@@ -541,6 +550,266 @@ def host_ms(fn, n):
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) * 1e3)
     return best
+
+
+# The vertex phase: the prepare and setup kernels of csrc/vertex.cu against
+# their plain torch versions on the card, the frames they give against the
+# eager frames of the plain vertex layer, their launches and their time.
+VERTEX_CELL = "diablo-shadow.orbit-burst"
+VERTEX_SEED = 2_147_500_018
+VERTEX_ORBIT = 32  # orbit poses (the burst's angle track, sin and cos on the card)
+VERTEX_RANDOM = 24  # poses of random unit-scale vectors
+# Near-degenerate (light, look_from, look_at, up): look_from along up, at
+# look_at, a hair off either, a zero up or light, tiny and huge vectors.
+VERTEX_DEGENERATE = (
+    ([0.3, 0.2, 0.9], [0.0, 1.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ([0.3, 0.2, 0.9], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ([0.3, 0.2, 0.9], [1e-30, 1.0, 0.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ([0.3, 0.2, 0.9], [0.0, 1e-7, 1e-7], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ([0.3, 0.2, 0.9], [0.0, 0.0, 1.0], [0.0, 0.0, 0.0], [0.0, 0.0, 0.0]),
+    ([0.0, 0.0, 0.0], [0.0, 0.0, 1.0], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]),
+    ([1e-20, 0.0, 0.0], [1e-3, 1e-3, 1.0], [0.0, 0.0, 0.0], [0.0, 1e-30, 0.0]),
+    ([0.3, 0.2, 0.9], [3e4, -2e4, 1e4], [0.1, 0.1, 0.1], [0.0, 1.0, 0.0]),
+)
+VERTEX_CONFIGS = ((800, 800), (256, 128))
+VERTEX_FRAME_POSES = 2  # Scene.render poses a pipeline
+VERTEX_TIMED = 200  # replays of the vertex layer's graphs timed by CUDA events
+VERTEX_KERNELS = re.compile(r"prepare_kernel|setup_kernel")
+
+
+def plain_vertex():
+    """The vertex layer's plain torch versions (mathlib.prepare_reference,
+    vertex.setup_reference) on CUDA tensors too, inside the returned
+    context: for eager frames, since a graph captured inside it would be
+    cached with the plain layer."""
+    from tiny_renderer_tpu_torch.ops import mathlib as ml
+    from tiny_renderer_tpu_torch.ops import vertex, vertex_cuda
+
+    stack = contextlib.ExitStack()
+    stack.enter_context(mock.patch.object(
+        vertex_cuda, "prepare",
+        lambda config, *vecs, inverses=False: ml.prepare_reference(config, *vecs, inverses=inverses)))
+    stack.enter_context(mock.patch.object(
+        vertex_cuda, "setup",
+        lambda tris, uniforms, config, exact_max, **kw: vertex.setup_reference(tris, uniforms, config, **kw)))
+    return stack
+
+
+def same_bits(a, b):
+    """(equal, NaN payloads that differ) of two tensors: floats compared as
+    bits, NaN against NaN by class."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False, 0
+    if a.dtype != torch.float32:
+        return torch.equal(a, b), 0
+    diff = a.contiguous().view(torch.int32) != b.contiguous().view(torch.int32)
+    both_nan = torch.isnan(a) & torch.isnan(b)
+    return not bool((diff & ~both_nan).any()), int((diff & both_nan).sum())
+
+
+def vertex_phase(dev, smi):
+    """Phase 2b: csrc/vertex.cu on the card.  Builds it (ptxas registers
+    printed).  Over VERTEX_ORBIT orbit poses, VERTEX_RANDOM random ones and
+    the near-degenerate ones, at both VERTEX_CONFIGS: each prepare's
+    uniforms (default_prepare, the light pass's, the camera pass's)
+    bit-equal to mathlib.prepare_reference on the same CUDA tensors, and
+    every triangle_setup field bit-equal to the plain layer's for each
+    built-in pipeline's needs and for glow's attr:*, on the benchmark's
+    sphere, a soup through the gather path and the soup scaled past the
+    exactness envelope (coord_overflow set).  Every launch's
+    cudaGetLastError() is 0 (the wrapper raises otherwise) and a
+    synchronize after each pose is clean.  Then the seven pipelines and
+    glow through Scene.render (replayed) byte-equal to render_frame with
+    the plain layer at VERTEX_FRAME_POSES poses, and a replayed 60-frame
+    shadow burst (frames, checksums, overflow) byte-equal to the plain
+    layer's eager burst, with 2 prepare and 2 setup launches a replayed
+    two-pass frame (1 and 1 one-pass) and raster_cuda.LAUNCHES as before.
+    torch.profiler over a replayed burst: kernels a frame, the vertex
+    kernels among them and their device time.  The vertex layer alone
+    (both prepares and setups of the shadow frame) captured as a graph,
+    the kernels against the plain layer, device ms a replay by CUDA events
+    (the launch queue held full).
+    Returns the numbers for the kernel table."""
+    from benchmark import harness, tracing
+    from benchmark.orbit import Orbit
+    from tiny_renderer_tpu_torch import RenderConfig, Scene
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.examples import custom_pipeline as example
+    from tiny_renderer_tpu_torch.ops import mathlib as ml
+    from tiny_renderer_tpu_torch.ops import raster_cuda, vertex_cuda
+    from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+    from tiny_renderer_tpu_torch.pipelines.graphs import CapturedGraph
+
+    lib, seconds, log = raster_cuda.build(force=True, source=vertex_cuda.SOURCE)
+    phase("vertex", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s")
+    registers = [line.strip() for line in log.splitlines()
+                 if "Compiling entry" in line or "registers" in line or "spill" in line]
+    for line in registers:
+        phase("vertex", line)
+
+    cell = harness.find_cell(VERTEX_CELL)
+    sc = harness.build_scene(cell.config, VERTEX_SEED, dev)[0]
+    example.register()
+    rng = np.random.default_rng(VERTEX_SEED)
+    orbit = Orbit(VERTEX_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
+    cams, ligs = (to_tensor(a, dev) for a in orbit.angles(0, VERTEX_ORBIT))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    origin, up_y = to_tensor(np.zeros(3, np.float32), dev), to_tensor(np.float32([0.0, 1.0, 0.0]), dev)
+    poses = [(torch.stack([torch.sin(li), zero, torch.cos(li)]), torch.stack([torch.sin(c), zero, torch.cos(c)]),
+              origin, up_y) for c, li in zip(cams, ligs)]
+    poses += [tuple(to_tensor(v, dev) for v in rng.normal(size=(4, 3)).astype(np.float32))
+              for _ in range(VERTEX_RANDOM)]
+    poses += [tuple(to_tensor(np.float32(v), dev) for v in pose) for pose in VERTEX_DEGENERATE]
+
+    big = soup(3000, 1)
+    big["positions"] = big["positions"] * np.float32(400.0)
+    geoms = {"sphere": sc._geom, "soup": {k: to_tensor(v, dev) for k, v in soup(3000, 0).items()},
+             "soup x400": {k: to_tensor(v, dev) for k, v in big.items()},
+             "sphere+glow": {**sc._geom, "attr:glow": to_tensor(example.glow_attribute(sc.model), dev)}}
+    needs = {name: tframe.PIPELINES[name].needs for name in (*PIPELINE_ORDER, "glow")}
+
+    n_prep = n_setup = nan_payloads = overflowed = 0
+    vertex_cuda.reset_launches()
+    for w, h in VERTEX_CONFIGS:
+        cfg = RenderConfig(width=w, height=h).resolve("shadow")
+        for pi, (light, look_from, look_at, up) in enumerate(poses):
+            label = f"{w}x{h} pose {pi}"
+            kernel = {"default": ml.default_prepare(cfg, light, look_from, look_at, up),
+                      "light": ml.shadow_pass_1_prepare(cfg, light, look_at, up),
+                      "camera": ml.shadow_pass_2_prepare(cfg, light, look_from, look_at, up)}
+            plain = {"default": ml.prepare_reference(cfg, light, look_from, look_at, up),
+                     "light": ml.prepare_reference(cfg, light, light, look_at, up),
+                     "camera": ml.prepare_reference(cfg, light, look_from, look_at, up, inverses=True)}
+            plain["light"]["shadow_matrix"] = plain["light"]["vpmv"]
+            for which, u in kernel.items():
+                check(set(u) == set(plain[which]), f"{label} {which}: keys {sorted(u)}")
+                for k, t in u.items():
+                    ok, nans = same_bits(t, plain[which][k])
+                    check(ok, f"{label} {which} prepare: {k} differs from the plain torch version")
+                    nan_payloads += nans
+                n_prep += 1
+            torch.cuda.synchronize()
+            kernel["camera"]["shadow_matrix"] = kernel["light"]["vpmv"]
+            for gname, geom in geoms.items():
+                variants = [("light", dict(matrix_key="shadow_matrix", cull=False))]
+                variants += [("camera", dict(needs=n)) for n in sorted(set(needs.values()))]
+                for which, kw in variants:
+                    if gname == "sphere+glow" and which == "light":
+                        continue
+                    got = triangle_setup(geom, kernel[which], cfg, **kw)
+                    with plain_vertex():
+                        want = triangle_setup(geom, kernel[which], cfg, **kw)
+                    check(set(got) == set(want), f"{label} {gname} {kw}: keys {sorted(set(got) ^ set(want))}")
+                    for k in want:
+                        ok, nans = same_bits(got[k], want[k])
+                        check(ok, f"{label} {gname} {which} {kw}: setup field {k} differs from the plain version")
+                        nan_payloads += nans
+                    overflowed += bool(want["coord_overflow"])
+                    n_setup += 1
+            torch.cuda.synchronize()
+    check(vertex_cuda.LAUNCHES == {"prepare": n_prep, "setup": n_setup},
+          f"vertex launches {vertex_cuda.LAUNCHES} for {n_prep} prepares and {n_setup} setups")
+    check(overflowed > 0, "no setup set coord_overflow: the envelope went unchecked")
+    phase("vertex", f"{len(poses)} poses x {len(VERTEX_CONFIGS)} sizes: {n_prep} prepares and {n_setup} setups "
+          f"({len(geoms)} geometries, needs {sorted(set(needs.values()))} and glow's attr:glow; "
+          f"{overflowed} with coord_overflow) bit-equal to the plain torch versions on the card "
+          f"(NaN payloads that differ: {nan_payloads}); every launch's cudaGetLastError() 0, "
+          f"synchronize clean")
+
+    # Frames: replayed Scene.render against render_frame with the plain layer.
+    frame_poses = [(np.float32([math.sin(li), 0.0, math.cos(li)]), np.float32([math.sin(c), 0.0, math.cos(c)]))
+                   for c, li in zip(*orbit.angles(7, VERTEX_FRAME_POSES))]
+    for name in (*PIPELINE_ORDER, "glow"):
+        attrs = {"glow": example.glow_attribute(sc.model)} if name == "glow" else None
+        s = Scene(sc.model, name, RenderConfig(), device=dev, vertex_attrs=attrs)
+        one = not tframe.PIPELINES[name].two_pass
+        for light, look_from in frame_poses:
+            s.set_light_direction(light)
+            s.set_camera(look_from, [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+            s.render()  # the first call captures
+            vertex_cuda.reset_launches()
+            got = s.render()
+            check(vertex_cuda.LAUNCHES == ({"prepare": 1, "setup": 1} if one else {"prepare": 2, "setup": 2}),
+                  f"{name}: vertex launches a replayed frame {vertex_cuda.LAUNCHES}")
+            view = [to_tensor(np.float32(v), dev) for v in (light, look_from, [0, 0, 0], [0, 1, 0])]
+            with plain_vertex():
+                want = tframe.render_frame(s._geom, s._textures, *view, pipeline=name, config=s.config)
+            for k in ("frame", "z", "shadow", "overflow"):
+                check(torch.equal(got[k], want[k]), f"{name}: replayed {k} differs from the plain layer's frame")
+    torch.cuda.synchronize()
+
+    # The benchmark's burst: replayed against the plain layer's eager burst.
+    n = cell.traffic["frames_per_call"]
+    bc, bl = (to_tensor(a, dev) for a in orbit.angles(100, n))
+    config = sc.config.resolve(sc.pipeline_name)
+    kw = dict(pipeline=sc.pipeline_name, config=config, keep_frames=True)
+    tframe.render_burst(sc._geom, sc._textures, bc, bl, **kw)  # captures
+    raster_before = dict(raster_cuda.LAUNCHES)
+    vertex_cuda.reset_launches()
+    got = tframe.render_burst(sc._geom, sc._textures, bc, bl, **kw)
+    check(vertex_cuda.LAUNCHES == {"prepare": 2 * n, "setup": 2 * n},
+          f"vertex launches of a replayed {n}-frame burst: {vertex_cuda.LAUNCHES}")
+    raster_n = {k: v - raster_before[k] for k, v in raster_cuda.LAUNCHES.items()}
+    with plain_vertex():
+        want = tframe._render_burst_eager(sc._geom, sc._textures, bc, bl, **kw)
+    for k in ("frames", "checksums", "overflow"):
+        check(torch.equal(got[k], want[k]), f"the replayed {n}-frame burst's {k} differ from the plain layer's")
+    check(not bool(got["overflow"].any()), "the burst overflowed")
+
+    # The profiler over a replayed burst: kernels a frame, the vertex ones.
+    trace = tracing.summarize(tracing.profile(
+        lambda: tframe.render_burst(sc._geom, sc._textures, bc, bl, **kw), dev)[0], frames=n)
+    vk = [(name, s) for name, s in trace.kernels if VERTEX_KERNELS.search(name)]
+    by_kernel = collections.defaultdict(list)
+    for name, s in vk:
+        by_kernel["prepare" if "prepare" in name else "setup"].append(s * 1e3)
+    kernels_a_frame = len(trace.kernels) / n
+    check(len(vk) == 4 * n, f"{len(vk)} vertex kernels in the profiled {n}-frame burst, not {4 * n}")
+
+    # The vertex layer alone, replayed: the kernels against the plain layer.
+    spec = tframe.PIPELINES["shadow"]
+    view = [to_tensor(np.float32(v), dev) for v in VIEW]
+
+    def layer(*v):
+        u1, u = tframe._uniforms(spec, config, *v)
+        s1 = triangle_setup(sc._geom, u1, config, matrix_key="shadow_matrix", cull=False)
+        s2 = triangle_setup(sc._geom, u, config, needs=spec.needs)
+        return s1["rx"], s2["rx"]
+
+    g_kernel = CapturedGraph(layer, view, "the vertex layer")
+    with plain_vertex():
+        g_plain = CapturedGraph(layer, view, "the plain vertex layer")
+        plain_trace = tracing.summarize(tracing.profile(lambda: layer(*view), dev)[0], frames=1)
+    check(g_kernel.vertex_launches == {"prepare": 2, "setup": 2} and not any(g_plain.vertex_launches.values()),
+          f"vertex launches recorded: {g_kernel.vertex_launches}, plain {g_plain.vertex_launches}")
+    ms = {}
+    for label, g in (("plain", g_plain), ("kernel", g_kernel), ("kernel2", g_kernel), ("plain2", g_plain)):
+        ms[label] = time_launches(lambda g=g: g.graph.replay(), VERTEX_TIMED, hold=True)
+    ms_kernel, ms_plain = min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"])
+    T = sc._geom["pos_tri"].shape[0]
+    # Bytes a frame: each pass reads positions and uvs (the camera pass the
+    # normals too) and writes 17 ints, 9 floats (+3 intensities) and valid.
+    nbytes = T * (36 + 24 + 17 * 4 + 9 * 4 + 1) + T * (36 + 24 + 36 + 17 * 4 + 12 * 4 + 1)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    result = {
+        "prepare_device_ms": float(np.mean(by_kernel["prepare"])), "setup_device_ms": float(np.mean(by_kernel["setup"])),
+        "layer_graph_ms": ms_kernel, "plain_graph_ms": ms_plain, "plain_kernels": len(plain_trace.kernels),
+        "kernels_per_frame": kernels_a_frame, "vertex_kernels_per_frame": len(vk) / n, "bound_ms": bound_ms,
+        "bytes": nbytes, "registers": registers, "raster_launches_a_burst": raster_n,
+    }
+    phase("vertex", f"Scene.render of {len(PIPELINE_ORDER)} pipelines and glow at {VERTEX_FRAME_POSES} poses and a "
+          f"replayed {n}-frame shadow burst byte-equal to the plain layer's eager frames; vertex launches a "
+          f"replayed frame 2 + 2 (two-pass), 1 + 1 (one-pass); raster launches of the burst {raster_n}")
+    phase("vertex", f"profiled replayed burst: {kernels_a_frame:.2f} kernels a frame, {len(vk) / n:.0f} of them "
+          f"vertex kernels; device ms a launch: prepare {result['prepare_device_ms']:.4f}, setup "
+          f"{result['setup_device_ms']:.4f} (light {min(by_kernel['setup']):.4f}..camera "
+          f"{max(by_kernel['setup']):.4f})")
+    phase("vertex", f"the vertex layer replayed alone (2 prepares + 2 setups, {T} triangles): {ms_kernel:.4f} ms a "
+          f"replay against the plain layer's {ms_plain:.4f} ms ({len(plain_trace.kernels)} kernels eagerly); "
+          f"bound {bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s), {bound_ms / ms_kernel:.2%} of it  [{smi}]")
+    print(json.dumps({"vertex": result}), flush=True)
+    return result
 
 
 def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scene, default_scene):
@@ -2340,6 +2609,10 @@ def main() -> int:
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             phase("build", line.strip())
     lap("build")
+
+    # -- 2b. vertex -----------------------------------------------------------
+    vertex_phase(dev, smi)
+    lap("vertex")
 
     cfg = RenderConfig().resolve("shadow")  # 800x800, the default config
     grid = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)

@@ -72,7 +72,7 @@ class StandIn(graphs.CapturedGraph):
     at each replay (_launch), on its own copies of the inputs."""
 
     def __init__(self, fn, inputs, name, hold=(), device=None, marked=False):
-        self.fn, self.lock, self.launches = fn, threading.Lock(), {}
+        self.fn, self.lock, self.launches, self.vertex_launches = fn, threading.Lock(), {}, {}
         self.inputs = [x.clone() for x in inputs]
         self.outputs = fn(*self.inputs)
 

@@ -16,7 +16,9 @@ fusion, no TF32), so these functions equal the JAX module run with
   occlusion probe's ``rotation_between``.
 
 Functions take tensors and compute on their device; matrices are (4, 4)
-row-major float32 tensors.
+row-major float32 tensors.  The prepares launch the prepare kernel of
+``csrc/vertex.cu`` (``ops/vertex_cuda.py``) for CUDA tensors;
+``prepare_reference`` is their torch code, on any device.
 """
 
 from __future__ import annotations
@@ -219,6 +221,28 @@ def mat3_inverse(m):
 # ---------------------------------------------------------------------------
 
 
+def viewport_projection(width, height, depth, projection_coef):
+    """The constant viewport and projection matrices of `default_prepare`
+    (shader.rs:183-230), float32 numpy (4, 4)."""
+    projection = np.eye(4, dtype=np.float32)
+    projection[3, 2] = np.float32(projection_coef)
+
+    w = np.float32(width - 1)
+    h = np.float32(height - 1)
+    d = np.float32(depth)
+    two = np.float32(2.0)
+    viewport = np.array(
+        [
+            [w / two, 0.0, 0.0, w / two],
+            [0.0, h / two, 0.0, h / two],
+            [0.0, 0.0, d / two, d / two],
+            [0.0, 0.0, 0.0, 1.0],
+        ],
+        dtype=np.float32,
+    )
+    return viewport, projection
+
+
 def camera_matrices(width, height, depth, projection_coef, look_from, look_at, up):
     """The matrix stack of `default_prepare` (shader.rs:183-230).
 
@@ -247,22 +271,7 @@ def camera_matrices(width, height, depth, projection_coef, look_from, look_at, u
             torch.stack([zero, zero, zero, one]),
         ]
     )
-    projection = np.eye(4, dtype=np.float32)
-    projection[3, 2] = np.float32(projection_coef)
-
-    w = np.float32(width - 1)
-    h = np.float32(height - 1)
-    d = np.float32(depth)
-    two = np.float32(2.0)
-    viewport = np.array(
-        [
-            [w / two, 0.0, 0.0, w / two],
-            [0.0, h / two, 0.0, h / two],
-            [0.0, 0.0, d / two, d / two],
-            [0.0, 0.0, 0.0, 1.0],
-        ],
-        dtype=np.float32,
-    )
+    viewport, projection = viewport_projection(width, height, depth, projection_coef)
     projection = const(tuple(map(tuple, projection.tolist())), dev)
     viewport = const(tuple(map(tuple, viewport.tolist())), dev)
 
@@ -272,14 +281,21 @@ def camera_matrices(width, height, depth, projection_coef, look_from, look_at, u
     return {"vpmv": vpmv, "m": model, "it_m": it_m, "camera_direction": new_z}
 
 
+def _vertex_cuda():
+    # Imported at the call: vertex_cuda imports raster_cuda, which imports
+    # this module.
+    from . import vertex_cuda
+
+    return vertex_cuda
+
+
 def default_prepare(config, light_direction, look_from, look_at, up):
-    """Full `default_prepare` (shader.rs:183-230): matrices + transformed light."""
-    u = camera_matrices(
-        config.width, config.height, config.depth, config.projection_coef,
-        look_from, look_at, up,
-    )
-    u["t_light_direction"] = normalize3(mat4_transform_vector(u["m"], light_direction))
-    return u
+    """Full `default_prepare` (shader.rs:183-230): matrices + transformed light.
+    CUDA tensors launch the prepare kernel (ops/vertex_cuda.py), whose
+    uniforms are views into one buffer; CPU tensors run prepare_reference."""
+    if look_from.is_cuda:
+        return _vertex_cuda().prepare(config, light_direction, look_from, look_at, up)
+    return prepare_reference(config, light_direction, look_from, look_at, up)
 
 
 def shadow_pass_1_prepare(config, light_direction, look_at, up):
@@ -291,10 +307,25 @@ def shadow_pass_1_prepare(config, light_direction, look_at, up):
 
 
 def shadow_pass_2_prepare(config, light_direction, look_from, look_at, up):
-    """shadow_pass_prepare_2 (shader.rs:259-279): default + i_vpmv, i_m."""
-    u = default_prepare(config, light_direction, look_from, look_at, up)
-    u["i_vpmv"] = mat4_inverse(u["vpmv"])
-    u["i_m"] = mat4_inverse(u["m"])
+    """shadow_pass_prepare_2 (shader.rs:259-279): default + i_vpmv, i_m.
+    CUDA tensors launch the prepare kernel, as default_prepare."""
+    if look_from.is_cuda:
+        return _vertex_cuda().prepare(config, light_direction, look_from, look_at, up, inverses=True)
+    return prepare_reference(config, light_direction, look_from, look_at, up, inverses=True)
+
+
+def prepare_reference(config, light_direction, look_from, look_at, up, inverses=False):
+    """The plain torch version of the prepare kernel, on any device:
+    default_prepare's uniforms, with `inverses` also shadow_pass_2_prepare's
+    i_vpmv and i_m."""
+    u = camera_matrices(
+        config.width, config.height, config.depth, config.projection_coef,
+        look_from, look_at, up,
+    )
+    u["t_light_direction"] = normalize3(mat4_transform_vector(u["m"], light_direction))
+    if inverses:
+        u["i_vpmv"] = mat4_inverse(u["vpmv"])
+        u["i_m"] = mat4_inverse(u["m"])
     return u
 
 

@@ -66,7 +66,9 @@ SUBTILE = (8, 32)
 _EXACT_SPAN = 2.0 ** 23  # csrc/raster.cu kExactSpan
 
 
-_CAPTURE = threading.local()  # .counts: the launches of the capture under way in this thread
+# .counts: {id(totals): the launches of the capture under way in this
+# thread}, one entry for each dict of totals being recorded.
+_CAPTURE = threading.local()
 
 
 def reset_launches():
@@ -75,28 +77,29 @@ def reset_launches():
 
 
 @contextlib.contextmanager
-def recording():
+def recording(totals=LAUNCHES):
     """Around the capture of a CUDA graph: the launches this thread makes
     inside are recorded into the graph, not run, so they go into the dict
-    this yields instead of LAUNCHES.  Pass it to replayed() at each replay."""
-    counts = dict.fromkeys(LAUNCHES, 0)
-    _CAPTURE.counts = counts
+    this yields instead of `totals` (LAUNCHES, or another module's dict of
+    counts).  Pass it to replayed() at each replay."""
+    counts = dict.fromkeys(totals, 0)
+    capture = _CAPTURE.__dict__.setdefault("counts", {})
+    capture[id(totals)] = counts
     try:
         yield counts
     finally:
-        _CAPTURE.counts = None
+        del capture[id(totals)]
 
 
-def replayed(counts):
+def replayed(counts, totals=LAUNCHES):
     """Count one replay of a graph whose capture recorded `counts`."""
     for k, n in counts.items():
-        LAUNCHES[k] += n
+        totals[k] += n
 
 
-def _counts():
-    """Where a launch is counted: the capture under way, else LAUNCHES."""
-    counts = getattr(_CAPTURE, "counts", None)
-    return LAUNCHES if counts is None else counts
+def launch_counts(totals=LAUNCHES):
+    """Where a launch is counted: the capture under way, else `totals`."""
+    return getattr(_CAPTURE, "counts", {}).get(id(totals), totals)
 
 
 def _nvcc() -> str:
@@ -315,7 +318,7 @@ def _launch(records, tris, starts, *, tile_h, tile_w, tiles_y, tiles_x, row_tile
             _ptr(varys), len(planes), desc, stream,
         )
     _raise_on(err, lib, "raster_depth")
-    counts = _counts()
+    counts = launch_counts()
     counts["raster"] += 1
     counts["gathered"] += tris is None
     counts["int16"] += idx is not None and idx_t == torch.int16
@@ -346,7 +349,7 @@ def _launch_fused(rec1, tris1, starts1, rec2, tris2, starts2, *, tile_h, tile_w,
             shadow_z.data_ptr(), idx.data_ptr(), stream,
         )
     _raise_on(err, lib, "raster_fused")
-    counts = _counts()
+    counts = launch_counts()
     counts["fused"] += 1
     counts["gathered"] += tris1 is None
     counts["fused_offset"] += row_tile_offset != 0

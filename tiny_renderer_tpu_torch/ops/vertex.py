@@ -4,7 +4,10 @@ Gathers per-triangle attributes, culls back faces (shader.rs:116-124),
 transforms and truncates to integer raster coordinates (shader.rs:150-165),
 flips uv v (shader.rs:136-147) and computes the int32 edge-function
 coefficients that make the raster's coverage tests exact
-(src/scene.rs:174-197).
+(src/scene.rs:174-197).  For CUDA tensors the setup kernel of
+``csrc/vertex.cu`` (``ops/vertex_cuda.py``) computes all of it but
+darboux's pieces and the "attr:*" pass-through; ``setup_reference`` is its
+torch code, on any device.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import mathlib as ml
+from . import vertex_cuda
 
 # Largest |raster coord| for which the int32 edge-coefficient arithmetic is
 # exact: products <= 2^29, per-pixel evaluations <= 2^30.
@@ -57,8 +61,52 @@ def triangle_setup(geom, uniforms, config, *, matrix_key="vpmv", cull=True, need
     rx/ry (T,3) i32, zv (T,3) f32, a1,b1,c1,a2,b2,c2,cz (T,) i32, the
     screen-clamped inclusive bbox x0,x1,y0,y1 (T,) i32, uv (T,3,2) with v
     flipped, coord_overflow (0-d bool), plus the requested varyings.
+    CUDA tensors launch the setup kernel (ops/vertex_cuda.py) for all of it
+    but darboux's pieces and the "attr:*" planes; CPU tensors run
+    setup_reference.
     """
     tris = gather_triangles(geom)
+    pos = tris["pos"]
+    T = pos.shape[0]
+    if pos.is_cuda:
+        out = vertex_cuda.setup(tris, uniforms, config, matrix_key=matrix_key, cull=cull, needs=needs,
+                               exact_max=EXACT_COORD_MAX)
+    else:
+        out = setup_reference(tris, uniforms, config, matrix_key=matrix_key, cull=cull, needs=needs)
+
+    # User vertex attributes ("attr:*"): (T, 3, k) planes passed through.
+    for key, val in geom.items():
+        if key.startswith("attr:"):
+            a = torch.as_tensor(val, dtype=torch.float32, device=pos.device)
+            if a.ndim != 3 or a.shape[0] != T or a.shape[1] != 3:
+                raise ValueError(
+                    f"custom vertex attribute {key!r} must have shape "
+                    f"(num_triangles={T}, 3, k); got {tuple(a.shape)}"
+                )
+            out[key] = a
+
+    if "darboux" in needs:
+        # Per-triangle Darboux basis pieces (shader.rs:561-643).
+        uv = out["uv"]
+        t_pos = ml.mat4_transform_point(uniforms["m"], pos)
+        out["t_norm"] = ml.normalize3(
+            ml.mat4_transform_vector(uniforms["it_m"], tris["normal"])
+        )
+        out["row0n"] = ml.normalize3(t_pos[:, 1] - t_pos[:, 0])
+        out["row1n"] = ml.normalize3(t_pos[:, 2] - t_pos[:, 0])
+        out["du"] = torch.stack(
+            [uv[:, 1, 0] - uv[:, 0, 0], uv[:, 2, 0] - uv[:, 0, 0]], dim=-1
+        )
+        out["dv"] = torch.stack(
+            [uv[:, 1, 1] - uv[:, 0, 1], uv[:, 2, 1] - uv[:, 0, 1]], dim=-1
+        )
+    return out
+
+
+def setup_reference(tris, uniforms, config, *, matrix_key="vpmv", cull=True, needs=()):
+    """The plain torch version of the setup kernel, on any device: the
+    outputs of triangle_setup but for darboux's pieces and the "attr:*"
+    planes, from gather_triangles' `tris`."""
     pos = tris["pos"]
     T = pos.shape[0]
 
@@ -114,18 +162,6 @@ def triangle_setup(geom, uniforms, config, *, matrix_key="vpmv", cull=True, need
         "x0": x0, "x1": x1c, "y0": y0, "y1": y1c,
         "uv": uv, "coord_overflow": coord_overflow,
     }
-
-    # User vertex attributes ("attr:*"): (T, 3, k) planes passed through.
-    for key, val in geom.items():
-        if key.startswith("attr:"):
-            a = torch.as_tensor(val, dtype=torch.float32, device=pos.device)
-            if a.ndim != 3 or a.shape[0] != T or a.shape[1] != 3:
-                raise ValueError(
-                    f"custom vertex attribute {key!r} must have shape "
-                    f"(num_triangles={T}, 3, k); got {tuple(a.shape)}"
-                )
-            out[key] = a
-
     if "face_intensity" in needs:
         # Flat shading: face normal through it_m (shader.rs:297-305).
         t_fn = ml.normalize3(ml.mat4_transform_vector(uniforms["it_m"], face_normals(pos)))
@@ -135,18 +171,4 @@ def triangle_setup(geom, uniforms, config, *, matrix_key="vpmv", cull=True, need
         # Per-vertex Gouraud/Phong intensities (shader.rs:362-373).
         t_n = ml.normalize3(ml.mat4_transform_vector(uniforms["it_m"], tris["normal"]))
         out["intensity"] = ml.dot3(uniforms["t_light_direction"], t_n)
-    if "darboux" in needs:
-        # Per-triangle Darboux basis pieces (shader.rs:561-643).
-        t_pos = ml.mat4_transform_point(uniforms["m"], pos)
-        out["t_norm"] = ml.normalize3(
-            ml.mat4_transform_vector(uniforms["it_m"], tris["normal"])
-        )
-        out["row0n"] = ml.normalize3(t_pos[:, 1] - t_pos[:, 0])
-        out["row1n"] = ml.normalize3(t_pos[:, 2] - t_pos[:, 0])
-        out["du"] = torch.stack(
-            [uv[:, 1, 0] - uv[:, 0, 0], uv[:, 2, 0] - uv[:, 0, 0]], dim=-1
-        )
-        out["dv"] = torch.stack(
-            [uv[:, 1, 1] - uv[:, 0, 1], uv[:, 2, 1] - uv[:, 0, 1]], dim=-1
-        )
     return out
