@@ -12,7 +12,9 @@ apart by thread; shade.chunks is the chunk rule at the covered count of a
 frame under and of one over the first chunk's end (12.5% of the strips at
 64x64 and strip_batch 8); the ring's bookkeeping on the mark kernel's plain
 version (stages, spans, chunks, call ids, overwritten frames dropped); a
-snapshot taken after the tracer is off drains what it issued while on.
+mark whose body did not run reads absent, not stale; a snapshot taken after
+the tracer is off drains what it issued while on; an occlusion frame's
+probe stage and covered pixels, eagerly and under marks on the CPU ring.
 
 On the card (marker `card`, skipped without CUDA; this file imports no JAX,
 so there: ``python -m pytest tests/test_torch_trace.py --noconftest -m card``):
@@ -21,7 +23,8 @@ render_sequence; the frames numbered in turn, the stamps monotone in each
 frame and its span within EVENT_EXTRA_MS of CUDA events around the same
 replay; a burst traced by torch.profiler with the tracer off
 holds the kernels it held before the tracer ran, the traced graph those and
-one mark kernel a mark.
+one mark kernel a mark; a traced occlusion burst's probe stage and covered
+pixels, beside the shadow frame's unchanged marks.
 """
 
 import collections
@@ -312,6 +315,69 @@ def test_snapshot_after_disable_drains(tracer, monkeypatch):
     assert timing.snapshot()["frames"] == []
 
 
+def test_marks_that_did_not_run_read_absent(tracer):
+    """A frame whose second chunk body was skipped (its two marks did not
+    run), in the row an earlier frame filled (a ring of one frame): its
+    marks read absent, not the earlier frame's stamps; the stage after them
+    is charged from the last stamp present, and no stage is negative."""
+    labels = ["start", "vertex", "shade", "probe", "shade", "probe", "shade"]
+    ring = timing._Ring(torch.device("cpu"), frames=1)
+    marks = timing.FrameMarks(ring)
+    marks.labels = list(labels)
+
+    def frame(t0, skipped=()):
+        def launch():
+            for slot in range(len(labels)):
+                if slot not in skipped:
+                    timing.mark_reference(ring.words, slot, slot == 0, now_ns=t0 + 100 * slot,
+                                          pixels=50 if slot == len(labels) - 1 else None)
+        return launch
+
+    ring.issue(marks, frame(1_000))
+    (full,), _ = ring.drain()
+    assert full["stages"] == pytest.approx({"vertex": 1e-4, "shade": 3e-4, "probe": 2e-4})
+    assert full["pixels"] == 50
+    ring.issue(marks, frame(5_000, skipped=(4, 5)))
+    row = ring.words[1].tolist()
+    assert row[4] == row[5] == -1  # cleared by the frame's first mark
+    (fr,), dropped = ring.drain()
+    assert dropped == 0 and fr["labels"] == labels
+    assert fr["stamps_ns"] == [5_000, 5_100, 5_200, 5_300, None, None, 5_600]
+    assert fr["stages"] == pytest.approx({"vertex": 1e-4, "shade": 1e-4 + 3e-4, "probe": 1e-4})
+    assert all(v >= 0 for v in fr["stages"].values())
+    assert fr["span_ms"] == pytest.approx(6e-4) and fr["pixels"] == 50
+
+
+def occlusion_scene(radius=0.45, size=64):
+    model = Model(mesh=make_uv_sphere(radius, 8, 10), **make_textures(16))
+    s = Scene(model, "occlusion", RenderConfig(width=size, height=size), device="cpu")
+    s.set_light_direction([0.3, 0.0, 0.95])
+    s.set_camera([0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    return s
+
+
+def test_occlusion_probe_and_pixels_cpu(tracer):
+    """A traced eager occlusion frame counts its covered pixels (the
+    counter occlusion.pixels); under marks, on a CPU ring, the frame gives
+    the probe's stage and the same pixels.  A shadow frame counts none."""
+    s = occlusion_scene()
+    covered = int((s.render()["z"] > F32_MIN).sum())
+    assert covered > 0
+    timing.enable()
+    s.render()
+    counters = timing.snapshot()["counters"]
+    assert counters["occlusion.pixels"] == covered and counters["shade.frames"] == 1
+    ring = timing._Ring(torch.device("cpu"), frames=4)
+    with timing.marking(ring) as marks:
+        s.render()  # eagerly every mark writes its stamp now, as a replay would
+    ring.issue(marks, lambda: None)
+    (fr,), _ = ring.drain()
+    assert fr["labels"] == ["vertex", "binning", "raster", "binning", "raster", "shade", "probe", "shade"]
+    assert fr["stages"]["probe"] > 0 and fr["pixels"] == covered and fr["chunks"] == 1
+    scene().render()
+    assert "occlusion.pixels" not in timing.snapshot()["counters"]
+
+
 # -- on the card ---------------------------------------------------------------
 
 @pytest.fixture
@@ -428,3 +494,41 @@ def test_card_profiled_burst_kernels(card, tracer, tmp_path):
 
     assert not kernels(traced) - kernels(before)
     assert all(name in DRIVER_KERNELS for _, name in kernels(before) - kernels(traced))
+
+
+@pytest.mark.card
+def test_card_occlusion_burst_probe_and_pixels(card, tracer):
+    """A traced 8-frame occlusion burst: every frame has a probe stage and
+    its covered pixels, equal to the covered pixels of the same frame
+    rendered eagerly with the tracer off; a traced shadow burst's frames
+    keep their marks and carry no pixels."""
+    from tiny_renderer_tpu_torch.app import flagship_model
+
+    model = flagship_model()
+    cams = np.linspace(0.0, 1.0, 8, dtype=np.float32)
+    ligs = np.linspace(0.5, -0.5, 8, dtype=np.float32)
+    s = Scene(model, "occlusion", RenderConfig(), device=card)
+    want = []
+    for c, l in zip(cams, ligs):
+        a = torch.tensor([c, l], device=card)
+        zero = torch.zeros((), device=card)
+        look_from = torch.stack([torch.sin(a[0]), zero, torch.cos(a[0])])
+        light = torch.stack([torch.sin(a[1]), zero, torch.cos(a[1])])
+        out = tframe.render_frame(s._geom, s._textures, light, look_from, torch.zeros(3, device=card),
+                                  torch.tensor([0.0, 1.0, 0.0], device=card), pipeline="occlusion",
+                                  config=s.config)
+        want.append(int((out["z"] > F32_MIN).sum()))
+    timing.enable()
+    s.render_sequence(cams, ligs)
+    shadow = Scene(model, "shadow", RenderConfig(), device=card)
+    shadow.render_sequence(cams, ligs)
+    frames = timing.snapshot()["frames"]
+    timing.disable()
+    occ = [fr for fr in frames if "probe" in fr["labels"]]
+    assert len(occ) == 8 and len(frames) == 16
+    for fr, n in zip(occ, want):
+        assert fr["stages"]["probe"] > 0 and fr["pixels"] == n and fr["chunks"] >= 1
+        assert fr["labels"][:6] == ["start", "vertex", "binning", "raster", "binning", "raster"]
+        assert fr["labels"][-2:] == ["shade", "shade"]
+    for fr in frames[8:]:
+        assert fr["labels"] == FRAME_MARKS + ["shade"] and fr["pixels"] is None and fr["covered"] > 0

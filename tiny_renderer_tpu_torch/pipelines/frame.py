@@ -697,19 +697,22 @@ def _assemble_shade(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     shadow_shade = _shadow_for_shade(shadow_z, spec, config)
     textures = _with_packed_plane(textures, pipeline, config)
     if compact:
-        return _shade_strips(
+        frame = _shade_strips(
             setup, idx, pipeline, uniforms, textures, config, shadow_shade, y_offset=y_offset,
             strip_mask=strips, planes=varys, planes_spec=kspec,
         )
-    if varys is None:
-        frag = _shade_dense_path(setup, idx, pipeline, y_offset)
     else:
-        frag = _fragments_from_planes(kspec, varys, idx.shape[0], idx.shape[1], y_offset)
-        _add_const_gather(frag, kspec, VARYING_SPECS[pipeline], setup, idx)
-    if spec.two_pass:
-        frag["shadow_buffer"] = shadow_shade
-    colors = spec.shade(frag, uniforms, textures, config)
-    return torch.where((idx >= 0)[..., None], colors, 0).to(torch.uint8)
+        if varys is None:
+            frag = _shade_dense_path(setup, idx, pipeline, y_offset)
+        else:
+            frag = _fragments_from_planes(kspec, varys, idx.shape[0], idx.shape[1], y_offset)
+            _add_const_gather(frag, kspec, VARYING_SPECS[pipeline], setup, idx)
+        if spec.two_pass:
+            frag["shadow_buffer"] = shadow_shade
+        colors = spec.shade(frag, uniforms, textures, config)
+        frame = torch.where((idx >= 0)[..., None], colors, 0).to(torch.uint8)
+    timing.frame_pixels(idx)
+    return frame
 
 
 def _light_pass(setup1, config, backend, rows=None, y0=0):

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import mathlib as ml
+from ..utils import timing
 from . import graphs
 
 # Each pipeline's varyings: (name, components, mode) with mode "interp"
@@ -552,8 +553,12 @@ def dedup_gather(table, flat_idx, cap_shift=3):
 def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
     """The occlusion core (shader.rs:882-941) for any batch of fragments:
     all n+1 shadow-buffer indices computed elementwise, then ONE gather
-    (dedup_gather under config.occlusion_dedup: the same values)."""
+    (dedup_gather under config.occlusion_dedup: the same values).  Traced,
+    the probe is the stage `probe` of its frame (the stage up to it keeps
+    `shade`) and the frame counts its covered pixels (timing.frame_pixels)."""
     n = config.occlusion_samples
+    timing.mark("shade")
+    timing.probe_pixels()
     sxs, sys = occlusion_sample_coords(xf, yf, zfrag, uniforms, config)
     flat = shadow_flat_indices(
         sxs, sys, shadow_buffer.shape, config.width,
@@ -561,7 +566,9 @@ def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
     )
     table = shadow_buffer.reshape(-1)
     vals = dedup_gather(table, flat) if config.occlusion_dedup else table[flat]  # (n+1, ...)
-    return occlusion_update(vals[:n], vals[n], config)
+    occ = occlusion_update(vals[:n], vals[n], config)
+    timing.mark("probe")
+    return occ
 
 
 def shade_occlusion(frag, uniforms, textures, config):

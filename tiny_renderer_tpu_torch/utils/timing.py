@@ -20,15 +20,20 @@ The tracer, off by default (``enable()``, ``disable()``, ``snapshot()``):
   (graphs.CapturedGraph(..., marked=True)) with the tracer on records a
   node of csrc/trace_mark.cu that writes %globaltimer into the device's
   ring of RING_FRAMES frames; at each replay the frame's first mark claims
-  the next row.  Elsewhere (eager frames, the CPU, any other graph) mark
-  does nothing.  ``shade_count`` gives the strip shade's covered count to
-  the frame's next mark, or, eagerly, reads it into the counters.  The ring
-  is drained (``drain()``) where the program already waits for the device,
-  once it holds half a ring of frames, and at each snapshot; each frame
-  yields its stages' device ms (the time from the previous mark to each
-  mark, summed by the mark's label), its device span (first mark to last),
-  its covered count and chunk bodies, and the call id of the call that
-  issued it.  Frames overwritten before a drain are counted as dropped.
+  the next row and clears it, so a mark whose node the replay skipped (in
+  the body of an IF node that did not run) reads absent.  Elsewhere (eager
+  frames, the CPU, any other graph) mark does nothing.  ``shade_count``
+  gives the strip shade's covered count to the frame's next mark, or,
+  eagerly, reads it into the counters; ``probe_pixels`` and
+  ``frame_pixels`` do the same with the covered pixels of a frame whose
+  shade ran the occlusion probe.  The ring is drained (``drain()``) where
+  the program already waits for the device, once it holds half a ring of
+  frames, and at each snapshot; each frame yields its stages' device ms
+  (the time from the previous mark that ran to each mark that ran, summed
+  by the mark's label), its device span (first mark to last), its covered
+  count and chunk bodies, its covered pixels, and the call id of the call
+  that issued it.  Frames overwritten before a drain are counted as
+  dropped.
 
 Off, a span site costs two module-level reads (the tracer's flag and
 torch.autograd.profiler's), a mark site one; a graph captured with the
@@ -124,7 +129,7 @@ def profile_trace(log_dir: str | None):
 MAX_SPANS = 100_000   # spans kept between snapshots (the rest counted as dropped)
 MAX_FRAMES = 10_000   # drained device frames kept between snapshots
 RING_FRAMES = 512     # frames a device's ring holds before it wraps
-RING_SLOTS = 62       # marks a frame may make (more are counted, not recorded)
+RING_SLOTS = 61       # marks a frame may make (more are counted, not recorded)
 MARK_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "trace_mark.cu"
 
 _ON = False           # the tracer's state
@@ -234,7 +239,7 @@ def _mark_library():
 
     lib = ctypes.CDLL(str(raster_cuda.build(source=MARK_SOURCE)[0]))
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.trace_mark.argtypes = [p, p, i, i, i, i, p]
+    lib.trace_mark.argtypes = [p, p, i, i, i, i, p, p]
     lib.trace_mark_load.argtypes = []
     for f in (lib.trace_mark, lib.trace_mark_load):
         f.restype = i
@@ -248,7 +253,7 @@ def _check(err, what):
         raise RuntimeError(f"trace mark: {what} failed: {_mark_library().trace_error_string(err).decode()}")
 
 
-def mark_reference(words, slot, advance, covered=None, now_ns=None):
+def mark_reference(words, slot, advance, covered=None, now_ns=None, pixels=None):
     """csrc/trace_mark.cu's mark_kernel in plain torch on a ring `words`
     ((frames + 1, stride) int64): the stamp now_ns (default: the host's
     clock) of mark `slot`, the frame's first when `advance`."""
@@ -259,11 +264,14 @@ def mark_reference(words, slot, advance, covered=None, now_ns=None):
     row = words[1 + (f - 1) % frames]
     if advance:
         words[0, 0] = f
+        row[:stride - 2] = -1
         row[stride - 2] = f
         row[stride - 1] = -1
     row[slot] = time.perf_counter_ns() if now_ns is None else now_ns
     if covered is not None:
         row[stride - 1] = int(covered)
+    if pixels is not None:
+        row[stride - 3] = int(pixels)
 
 
 class _Ring:
@@ -272,19 +280,19 @@ class _Ring:
 
     def __init__(self, device, frames=RING_FRAMES):
         self.device, self.frames = device, frames
-        self.words = torch.zeros((frames + 1, RING_SLOTS + 2), dtype=torch.int64, device=device)
+        self.words = torch.zeros((frames + 1, RING_SLOTS + 3), dtype=torch.int64, device=device)
         self.lock = threading.Lock()
         self.issued = collections.deque()  # (frame number, call id, FrameMarks), not drained yet
         self.last = 0                      # frames issued so far
 
-    def mark(self, slot, advance, covered=None):
+    def mark(self, slot, advance, covered=None, pixels=None):
         if self.words.is_cuda:
             lib = _mark_library()
-            ptr = covered.data_ptr() if covered is not None else None
+            ptrs = [t.data_ptr() if t is not None else None for t in (covered, pixels)]
             _check(lib.trace_mark(torch.cuda.current_stream(self.device).cuda_stream, self.words.data_ptr(),
-                                  self.frames, self.words.shape[1], slot, int(advance), ptr), "a launch")
+                                  self.frames, self.words.shape[1], slot, int(advance), *ptrs), "a launch")
         else:
-            mark_reference(self.words, slot, advance, covered)
+            mark_reference(self.words, slot, advance, covered, pixels=pixels)
 
     def issue(self, marks, launch):
         """launch() one frame of a graph whose capture recorded `marks`."""
@@ -321,35 +329,43 @@ class _Ring:
 def _frame_record(row, call, marks, device):
     """One drained frame: its number in the ring (the device's frame
     counter), its stages' device ms, span, covered count, chunk bodies run,
-    stamps and labels, and the call id that issued it."""
+    covered pixels, stamps (None for a mark that did not run) and labels,
+    and the call id that issued it.  A stage is charged from the previous
+    stamp present to each stamp present."""
     labels = marks.labels
-    stamps = row[:len(labels)]
-    stages = {}
-    for label, a, b in zip(labels[1:], stamps, stamps[1:]):
-        stages[label] = stages.get(label, 0.0) + (b - a) / 1e6
+    stamps = [t if t >= 0 else None for t in row[:len(labels)]]
+    stages, present = {}, []
+    for label, t in zip(labels, stamps):
+        if t is None:
+            continue
+        if present:
+            stages[label] = stages.get(label, 0.0) + (t - present[-1]) / 1e6
+        present.append(t)
     covered = None if row[-1] < 0 else row[-1]
     chunks = (None if covered is None or marks.chunk_starts is None
               else sum(s < covered for s in marks.chunk_starts))
     return {"frame": row[-2], "call": call, "device": str(device), "labels": list(labels), "stamps_ns": stamps,
-            "stages": stages, "span_ms": (stamps[-1] - stamps[0]) / 1e6, "covered": covered, "chunks": chunks}
+            "stages": stages, "span_ms": (present[-1] - present[0]) / 1e6, "covered": covered, "chunks": chunks,
+            "pixels": None if row[-3] < 0 else row[-3]}
 
 
 class FrameMarks:
     """The marks one frame graph's capture recorded into a ring: their
-    labels, the slot of the shade's covered count and its chunks' first
-    slots (shade_count), and the tensors the nodes read."""
+    labels, the shade's covered count and its chunks' first slots
+    (shade_count) and the covered pixels (frame_pixels), each waiting for
+    the next mark, and the tensors the nodes read."""
 
     def __init__(self, ring):
         self.ring, self.labels, self.hold = ring, [], []
-        self.covered = self.chunk_starts = None
+        self.covered = self.chunk_starts = self.pixels = None
 
     def add(self, label):
         slot = len(self.labels)
         if slot >= RING_SLOTS:
             count("trace.marks_over")
             return
-        covered, self.covered = self.covered, None
-        self.ring.mark(slot, slot == 0, covered)
+        covered, pixels, self.covered, self.pixels = self.covered, self.pixels, None, None
+        self.ring.mark(slot, slot == 0, covered, pixels)
         self.labels.append(label)
 
 
@@ -420,6 +436,31 @@ def shade_count(covered, chunk_starts):
         count("shade.frames")
 
 
+def probe_pixels():
+    """Called by the occlusion probe as it is issued: with the tracer on,
+    the frame's frame_pixels then counts its covered pixels."""
+    if _ON:
+        _LOCAL.probe = True
+
+
+def frame_pixels(idx):
+    """The covered pixels (idx >= 0) of a frame whose shade ran the
+    occlusion probe since the last call (probe_pixels), as a 0-d int32
+    count: under a marked capture the frame's next mark records it on the
+    device (the frame's "pixels"); otherwise, with the tracer on and no
+    capture under way, it is read into the counter occlusion.pixels.
+    Nothing for any other frame."""
+    if not getattr(_LOCAL, "probe", False):
+        return
+    _LOCAL.probe = False
+    marks = _marks()
+    if marks is not None:
+        marks.pixels = (idx >= 0).sum(dtype=torch.int32)
+        marks.hold.append(marks.pixels)
+    elif _ON and not (idx.is_cuda and torch.cuda.is_current_stream_capturing()):
+        count("occlusion.pixels", int((idx >= 0).sum()))
+
+
 def drain(everything=False):
     """While the tracer is on, move the device frames finished on the
     current stream out of each ring that holds half a ring of them (the
@@ -441,6 +482,8 @@ def drain(everything=False):
                     if fr["chunks"] is not None:
                         _counters["shade.chunks"] += fr["chunks"]
                         _counters["shade.frames"] += 1
+                    if fr["pixels"] is not None:
+                        _counters["occlusion.pixels"] += fr["pixels"]
                     if len(_frames) < MAX_FRAMES:
                         _frames.append(fr)
                     else:
