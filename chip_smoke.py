@@ -208,6 +208,16 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              strip shade's at the same pose; torch.profiler counts 7 mark
              kernels a frame (8 a burst frame) and shows the program's
              spans as host ranges.
+14b. sequence — render_sequence's frames returned through pinned host
+             memory, a frame's copy on the copy stream behind the next
+             replay, on the two burst cells' 800x800 shadow and occlusion
+             scenes: three back-to-back 60-frame calls, every array held,
+             each byte-equal to the burst's kept frames fetched by .cpu(),
+             the first unchanged under the later calls; the counter
+             sequence.overlapped 59 a call with the tracer on, the frames
+             byte-equal with it off and on.  Prints ms a frame of the
+             closed loop against one pageable .cpu() after the burst, in
+             turns (sequence_phase, runnable alone).
 15. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
@@ -251,6 +261,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -1162,6 +1173,91 @@ def trace_phase(dev, smi):
           f"burst stages (median device ms) " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
           + f"  [{smi}]")
 
+
+# The sequence phase: the burst cells' scenes, SEQ_CALLS back-to-back
+# render_sequence calls of their mix's frames_per_call each.
+SEQ_CELLS = ("diablo-shadow.orbit-burst", "diablo-occlusion.orbit-burst")
+SEQ_SEED = 2_147_511_913
+SEQ_CALLS = 3
+SEQ_ROUNDS = 4  # timed rounds of SEQ_CALLS calls, the two returns in turns
+
+
+def sequence_phase(dev, smi):
+    """Phase 14b: render_sequence's frames returned through pinned host
+    memory, each frame's copy on the copy stream behind the next replay, on
+    the two burst cells' 800^2 scenes (shadow and occlusion; benchmark/configs,
+    the seed's scene).  SEQ_CALLS back-to-back calls along the mix's orbit,
+    every array held: each byte-equal to render_burst(..., keep_frames=True)
+    ["frames"].cpu().numpy()[:, ::-1] at the same angles; the first call's
+    array unchanged after the later calls (a pinned block in use is never
+    given out again); the counter sequence.overlapped N - 1 a call with the
+    tracer on, and the frames byte-equal with it off and on.  Prints ms a
+    frame of the closed loop (the previous array held, as the benchmark's
+    loop holds it) against the one pageable .cpu() after the burst, in
+    turns, and whether a dropped array's pinned block was given out again."""
+    from benchmark import harness
+    from benchmark.orbit import Orbit
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.pipelines.frame import make_burst_fn
+    from tiny_renderer_tpu_torch.utils import timing
+
+    check(not timing.tracing(), "the tracer is on before the sequence phase")
+    for name in SEQ_CELLS:
+        cell = harness.find_cell(name)
+        n = cell.traffic["frames_per_call"]
+        sc = harness.build_scene(cell.config, SEQ_SEED, dev)[0]
+        orbit = Orbit(SEQ_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
+        angles = [orbit.angles(k * n, n) for k in range(SEQ_CALLS)]
+        burst = make_burst_fn(sc.pipeline_name, sc.config, keep_frames=True, backend=sc.backend)
+
+        def pageable(cams, ligs):
+            """The return before pinned staging: one .cpu() after the burst."""
+            out = burst(sc._geom, sc._textures, to_tensor(cams, dev), to_tensor(ligs, dev))
+            check(not bool(out["overflow"].any()), f"{name}: a burst frame overflowed")
+            return out["frames"].cpu().numpy()[:, ::-1]
+
+        timing.snapshot()
+        held = [sc.render_sequence(*a) for a in angles]
+        first = held[0].copy()
+        want = [pageable(*a) for a in angles]
+        check(all(np.array_equal(h, w) for h, w in zip(held, want)),
+              f"{name}: render_sequence's frames differ from the burst's kept frames")
+        check(np.array_equal(held[0], first), f"{name}: the first call's frames changed under later calls")
+        addresses = {h.ctypes.data for h in held}
+        check(len(addresses) == SEQ_CALLS, f"{name}: held calls share pinned blocks")
+        dropped = held.pop().ctypes.data
+        again = sc.render_sequence(*angles[-1])
+        reused = again.ctypes.data == dropped
+        check(np.array_equal(again, want[-1]), f"{name}: a call into a reused block differs")
+        del again
+        timing.enable()
+        traced = [sc.render_sequence(*a) for a in angles]  # the first captures the traced graph
+        counters = timing.snapshot()["counters"]
+        timing.disable()
+        timing.snapshot()
+        check(all(np.array_equal(t, w) for t, w in zip(traced, want)), f"{name}: frames differ with the tracer on")
+        check(counters.get("sequence.overlapped") == SEQ_CALLS * (n - 1)
+              and counters.get("sequence.frames") == SEQ_CALLS * n,
+              f"{name}: counters {counters.get('sequence.overlapped')} overlapped, "
+              f"{counters.get('sequence.frames')} frames over {SEQ_CALLS} calls")
+        del held, traced, want
+
+        ms = {"pinned": [], "pageable": []}
+        for r in range(SEQ_ROUNDS):
+            for how in (("pinned", "pageable") if r % 2 == 0 else ("pageable", "pinned")):
+                call = sc.render_sequence if how == "pinned" else pageable
+                out = call(*angles[0])  # the loop holds the previous array while it calls again
+                t = time.perf_counter()
+                for a in angles:
+                    out = call(*a)
+                ms[how].append(1e3 * (time.perf_counter() - t) / (SEQ_CALLS * n))
+                del out
+        phase("sequence", f"{name} (seed {SEQ_SEED}): {SEQ_CALLS} render_sequence calls of {n} frames byte-equal "
+              f"to the kept burst frames, the first unchanged under the later ones, with the tracer off and on; "
+              f"sequence.overlapped {counters['sequence.overlapped'] // SEQ_CALLS} a call; a dropped array's "
+              f"pinned block given out again: {reused}; ms a frame, closed loop (median of {SEQ_ROUNDS} rounds): "
+              f"pinned {statistics.median(ms['pinned']):.4f} {[round(v, 4) for v in ms['pinned']]}, pageable "
+              f"{statistics.median(ms['pageable']):.4f} {[round(v, 4) for v in ms['pageable']]}  [{smi}]")
 
 # The kernels of csrc/raster.cu as the trace names them: K1's instantiations
 # raster_kernel<with_idx, with_planes> and K2.
@@ -3146,6 +3242,10 @@ def main() -> int:
     # -- 14. trace ------------------------------------------------------------
     trace_phase(dev, smi)
     lap("trace")
+
+    # -- 14b. sequence ----------------------------------------------------------
+    sequence_phase(dev, smi)
+    lap("sequence")
 
     # -- 15. profile ----------------------------------------------------------
     profile_phase(dev, RenderConfig(), smi, scene)

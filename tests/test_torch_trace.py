@@ -14,7 +14,9 @@ frame under and of one over the first chunk's end (12.5% of the strips at
 version (stages, spans, chunks, call ids, overwritten frames dropped); a
 mark whose body did not run reads absent, not stale; a snapshot taken after
 the tracer is off drains what it issued while on; an occlusion frame's
-probe stage and covered pixels, eagerly and under marks on the CPU ring.
+probe stage and covered pixels, eagerly and under marks on the CPU ring;
+render_burst's host destination filled byte-equal to its kept frames, and
+render_sequence on the CPU eager, its spans kept, sequence.overlapped 0.
 
 On the card (marker `card`, skipped without CUDA; this file imports no JAX,
 so there: ``python -m pytest tests/test_torch_trace.py --noconftest -m card``):
@@ -376,6 +378,44 @@ def test_occlusion_probe_and_pixels_cpu(tracer):
     assert fr["stages"]["probe"] > 0 and fr["pixels"] == covered and fr["chunks"] == 1
     scene().render()
     assert "occlusion.pixels" not in timing.snapshot()["counters"]
+
+
+
+@pytest.mark.parametrize("make", [scene, occlusion_scene], ids=["shadow", "occlusion"])
+def test_burst_fills_host_frames_cpu(tracer, make):
+    """render_burst with a host destination (render_sequence's on CUDA) on
+    CPU tensors fills it with the keep_frames frames, byte for byte, and
+    returns it as the frames, with the same checksums and flags."""
+    s = make()
+    args = (s._geom, s._textures, torch.tensor(CAMS), torch.tensor(LIGS))
+    kw = dict(pipeline=s.pipeline_name, config=s.config)
+    kept = tframe.render_burst(*args, keep_frames=True, **kw)
+    host = torch.zeros((len(CAMS), s.config.height, s.config.width, 3), dtype=torch.uint8)
+    timing.enable()
+    out = tframe.render_burst(*args, host_frames=host, **kw)
+    assert out["frames"] is host and "copied" not in out
+    assert torch.equal(host, kept["frames"]) and bool(host.any())
+    assert torch.equal(out["checksums"], kept["checksums"]) and torch.equal(out["overflow"], kept["overflow"])
+    assert timing.snapshot()["counters"].get("sequence.overlapped", 0) == 0
+
+
+def test_render_sequence_cpu_spans_and_no_overlap(tracer):
+    """On the CPU render_sequence stays eager and copies nothing to pinned
+    memory: its three spans under it, the frames it returned counted,
+    sequence.overlapped 0, and the frames those of render_burst."""
+    s = scene()
+    timing.enable()
+    seq = s.render_sequence(CAMS, LIGS)
+    snap = timing.snapshot()
+    root, = [sp for sp in snap["spans"] if sp["parent"] is None]
+    assert root["name"] == "scene.render_sequence"
+    assert sorted(sp["name"] for sp in snap["spans"] if sp["parent"] == root["id"]) == [
+        "sequence.copy", "sequence.issue", "sequence.wait"]
+    assert snap["counters"]["sequence.frames"] == len(CAMS)
+    assert snap["counters"].get("sequence.overlapped", 0) == 0
+    kept = tframe.render_burst(s._geom, s._textures, torch.tensor(CAMS), torch.tensor(LIGS),
+                               pipeline="shadow", config=s.config, keep_frames=True)
+    assert np.array_equal(seq, kept["frames"].numpy()[:, ::-1])
 
 
 # -- on the card ---------------------------------------------------------------

@@ -839,6 +839,13 @@ def _captures(device):
     return device.type == "cuda"
 
 
+@functools.cache
+def _copy_stream(device):
+    """The stream on CUDA `device` that copies burst frames to host memory:
+    its D2H runs on a copy engine while the render stream renders on."""
+    return torch.cuda.Stream(device=device)
+
+
 def _capture(kind, fn, inputs, pipeline, config, backend, gen, geom, textures):
     """The cached graph of fn(*inputs) on the geometry and textures, its
     stage marks recorded when the tracer is on."""
@@ -908,7 +915,7 @@ def _burst_frame(geom, textures, angles, *, pipeline, config, backend):
 
 
 def _render_burst_eager(geom, textures, camera_angles, light_angles, *, pipeline, config,
-                        keep_frames=False, backend="kernel"):
+                        keep_frames=False, backend="kernel", host_frames=None):
     """render_burst's frames rendered eagerly one after another (its path
     on CPU tensors; on CUDA tensors the eager side of the graph checks)."""
     angles = torch.stack([camera_angles, light_angles], dim=1)
@@ -916,13 +923,15 @@ def _render_burst_eager(geom, textures, camera_angles, light_angles, *, pipeline
             for a in angles]
     stats = torch.stack([s for s, _ in outs])
     result = {"checksums": stats[:, 0], "overflow": stats[:, 1].bool()}
-    if keep_frames:
+    if host_frames is not None:
+        result["frames"] = host_frames.copy_(torch.stack([f for _, f in outs]))
+    elif keep_frames:
         result["frames"] = torch.stack([f for _, f in outs])
     return result
 
 
 def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
-                 config, keep_frames=False, backend="kernel", gen=None):
+                 config, keep_frames=False, backend="kernel", gen=None, host_frames=None):
     """Render an animation burst: one frame per (camera, light) orbit angle
     (src/app.rs:200-207), camera z-buffer not emitted.
 
@@ -935,11 +944,19 @@ def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
     registration generation) and replayed N times, with no host sync:
     per frame the host copies the two angles in, launches the graph and
     copies the checksum and overflow (and the frame) out, all
-    asynchronously.  On CPU tensors the frames render eagerly."""
+    asynchronously.  On CPU tensors the frames render eagerly.
+
+    `host_frames` (Scene.render_sequence's, not a user knob): an (N, H, W,
+    3) u8 host tensor, pinned, that receives the frames and is returned as
+    "frames".  On CUDA each frame is copied there on the device's copy
+    stream while the next frame renders, and "copied" is an event that
+    completes with the last copy; the counter sequence.overlapped counts
+    the frames whose copy was issued before the burst's last replay."""
     config = config.resolve(pipeline)
     if not _captures(camera_angles.device):
         return _render_burst_eager(geom, textures, camera_angles, light_angles, pipeline=pipeline,
-                                   config=config, keep_frames=keep_frames, backend=backend)
+                                   config=config, keep_frames=keep_frames, backend=backend,
+                                   host_frames=host_frames)
     gen = registry_generation(pipeline) if gen is None else gen
     angles = torch.stack([camera_angles, light_angles], dim=1)
     n, dev = angles.shape[0], angles.device
@@ -953,15 +970,26 @@ def render_burst(geom, textures, camera_angles, light_angles, *, pipeline,
     graph = _capture("burst frame", fn, (angles[0],), pipeline, config, backend, gen, geom, textures)
     stats = torch.empty((n, 2), dtype=torch.int64, device=dev)
     frames = (torch.empty((n, config.height, config.width, 3), dtype=torch.uint8, device=dev)
-              if keep_frames else None)
+              if keep_frames or host_frames is not None else None)
+    copies = _copy_stream(dev) if host_frames is not None else None
     with graph.lock:
         for i in range(n):
             stat, frame = graph(angles[i])
             stats[i].copy_(stat, non_blocking=True)
-            if keep_frames:
+            if frames is not None:
+                # The graph's output is overwritten by the next replay: the
+                # host copy reads this buffer instead.
                 frames[i].copy_(frame, non_blocking=True)
+            if copies is not None:
+                copies.wait_stream(torch.cuda.current_stream(dev))
+                with torch.cuda.stream(copies):
+                    host_frames[i].copy_(frames[i], non_blocking=True)
     result = {"checksums": stats[:, 0], "overflow": stats[:, 1].bool()}
-    if keep_frames:
+    if copies is not None:
+        frames.record_stream(copies)  # freed here, read there until copied
+        result["frames"], result["copied"] = host_frames, copies.record_event()
+        timing.count("sequence.overlapped", max(n - 1, 0))  # every copy but the last
+    elif keep_frames:
         result["frames"] = frames
     return result
 

@@ -6,8 +6,11 @@ there.  The getters fetch and convert like the reference (u8 casts,
 vertical flip at presentation, scene.rs:92-125).  The public calls record
 the tracer's host spans (utils/timing.py): scene.render (scene.stage, then
 the frame graph's graph.replay and frame.clone), scene.fetch (fetch.wait,
-fetch.copy) and scene.render_sequence (sequence.issue, sequence.wait,
-sequence.copy; the counter sequence.frames: the frames it returned).
+fetch.copy) and scene.render_sequence (sequence.issue: the replays and, on
+CUDA, each frame's copy to pinned host memory issued; sequence.wait: the
+render finished; sequence.copy: the copies' unhidden tail; the counters
+sequence.frames, the frames it returned, and sequence.overlapped, those
+whose copy was issued before the burst's last replay).
 """
 
 from __future__ import annotations
@@ -125,19 +128,31 @@ class Scene:
 
     def render_sequence(self, camera_angles, light_angles) -> np.ndarray:
         """Render an orbit burst (src/app.rs:200-207) and return the frames as
-        (N, H, W, 3) u8, presentation-flipped like get_frame_buffer."""
+        (N, H, W, 3) u8, presentation-flipped like get_frame_buffer.
+
+        On CUDA the frames are a view of one pinned host tensor, each frame
+        copied there while the next renders.  Torch's caching host allocator
+        gives the block out again once the caller drops the array, so a
+        caller that keeps frames across calls keeps pinned memory."""
+        cams = np.asarray(camera_angles, np.float32)
         with timing.span("scene.render_sequence"):
             with timing.span("sequence.issue"):
+                host = (torch.empty((len(cams), self.config.height, self.config.width, 3),
+                                    dtype=torch.uint8, pin_memory=True)
+                        if self.device.type == "cuda" else None)
                 burst = make_burst_fn(self.pipeline_name, self.config, keep_frames=True,
                                       backend=self.backend)
                 out = burst(
                     self._geom, self._textures,
-                    to_tensor(np.asarray(camera_angles, np.float32), self.device),
+                    to_tensor(cams, self.device),
                     to_tensor(np.asarray(light_angles, np.float32), self.device),
+                    host_frames=host,
                 )
             with timing.span("sequence.wait"):
                 self._warn_if_overflowed(out["overflow"])
             with timing.span("sequence.copy"):
+                if "copied" in out:
+                    out["copied"].synchronize()
                 frames = out["frames"].cpu().numpy()[:, ::-1]
             timing.count("sequence.frames", len(frames))
             timing.drain()
