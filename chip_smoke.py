@@ -221,21 +221,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
 15. profile — the CLI with --profile (torch.profiler): the trace's GPU
              kernels and the device's idle share over 4 shadow frames, and
              the shadow frame by the stage profile before and after the
-             profiler ran (the last phase timed in this process: only the
-             bench phase's check follows, and its times come from fresh
-             processes).
-16. bench  — the bench harness (python -m tiny_renderer_tpu_torch.bench).
-             In process: bench_config for diablo/shadow at 800x800 with 16
-             frames, its K1 launches counted, its timed burst's checksums
-             bit-equal to render_burst's on the same angles and the same
-             Scene tensors, no overflow.  Then `--all --stress --frames 32`
-             as a subprocess (each of the six configs in a child process
-             of its own): exit code 0, six per-config stderr lines with
-             finite positive times and no overflowed frame, the last
-             stdout line the JSON payload
-             with exactly its keys and `device` naming this card; and the
-             headline alone twice more (--frames 64), each in a process of
-             its own, for the spread.
+             profiler ran (the last phase).
 
 Each phase prints its seconds and the most device memory reserved in it.  Launch counts are set to 0 just before each
 path is driven and read just after (the kernels line's launches_by_pipeline
@@ -1691,78 +1677,6 @@ def profile_phase(dev, config, smi, shadow_scene):
           f"{before['graph_device']:.3f} | {before['graph_host']:.3f} before the profiler ran in this process, "
           f"{after['device']:.3f} | {after['host']:.3f} || {after['graph_device']:.3f} | "
           f"{after['graph_host']:.3f} after  [{smi}]")
-
-
-BENCH_FRAMES = 16  # the in-process bench_config
-BENCH_KEYS = ["metric", "value", "unit", "vs_baseline", "device"]
-# A per-config stderr line of the bench: its three times (ms/frame,
-# hostloop, blit) and the timed burst's overflowed frames.
-BENCH_LINE = re.compile(r"^# \S+\s+\S+\s+(\S+) ms/frame .* hostloop (\S+) ms blit (\S+) ms "
-                        r"overflow (\d+)/\d+ \[.*\]$")
-
-
-def run_bench(*args):
-    """`python -m tiny_renderer_tpu_torch.bench *args` from the repository
-    root: (its JSON line as a dict, its per-config stderr lines)."""
-    proc = subprocess.run([sys.executable, "-m", "tiny_renderer_tpu_torch.bench", *args],
-                          capture_output=True, text=True, timeout=600, cwd=ROOT)
-    check(proc.returncode == 0, f"bench {' '.join(args)} exited {proc.returncode}:\n{proc.stderr[-4000:]}")
-    payload = json.loads(proc.stdout.strip().splitlines()[-1])
-    check(list(payload) == BENCH_KEYS, f"bench JSON keys {list(payload)}")
-    return payload, [ln for ln in proc.stderr.splitlines() if ln.startswith("# ")]
-
-
-def bench_phase(dev, smi, record):
-    """Phase 16: the bench harness, in process (checked against
-    render_burst) and as the command a user runs (fresh processes)."""
-    from tiny_renderer_tpu_torch import RenderConfig, Scene, bench
-    from tiny_renderer_tpu_torch.convert import to_tensor
-    from tiny_renderer_tpu_torch.ops import raster_cuda
-    from tiny_renderer_tpu_torch.pipelines.frame import render_burst
-
-    # (a) In process: the bench's timed burst renders what it claims.
-    raster_cuda.reset_launches()
-    r = bench.bench_config("diablo", "shadow", False, BENCH_FRAMES)
-    torch.cuda.synchronize()
-    counts = dict(raster_cuda.LAUNCHES)
-    record("bench", counts)
-    # Bursts of 8, n, 8, n frames, then 1 + min(frames, 20) Scene.render, and
-    # the warm-up frame of each of the two captures (burst and Scene.render):
-    # 2 K1 each.
-    want_launches = 2 * (2 * (8 + BENCH_FRAMES) + 1 + min(BENCH_FRAMES, 20) + 2)
-    check(counts["raster"] == want_launches and counts["fused"] == 0,
-          f"bench_config launched {counts}, expected {want_launches} K1")
-    check(not r["overflow"].any(), f"the bench's burst overflowed: {r['overflow']}")
-    model, _ = bench.bench_scene("diablo")
-    scene = Scene(model, "shadow", RenderConfig(), device=dev)
-    want = render_burst(scene._geom, scene._textures, *(to_tensor(a, dev) for a in r["angles"]),
-                        pipeline="shadow", config=scene.config)
-    check(np.array_equal(r["checksums"], want["checksums"].cpu().numpy()),
-          "the bench's checksums differ from render_burst's on the same angles")
-    phase("bench", f"bench_config diablo/shadow in process (after every other phase), "
-          f"{BENCH_FRAMES} frames: {counts['raster']} K1 launches, checksums of the timed "
-          f"{len(r['checksums'])}-frame burst bit-equal to render_burst's, no overflow; "
-          f"ms_per_frame {r['ms_per_frame']:.3f}, hostloop {r['ms_per_frame_hostloop']:.3f}, "
-          f"blit {r['blit_ms']:.3f} [{r['scene']}]  [{smi}]")
-
-    # (b) The six configs, each in a child process of its own.
-    payload, lines = run_bench("--all", "--stress", "--frames", "32")
-    check(len(lines) == 6, f"bench --all --stress printed {len(lines)} per-config lines")
-    for ln in lines:
-        m = BENCH_LINE.match(ln)
-        check(m is not None, f"bench line unparsed: {ln}")
-        times = [float(t) for t in m.groups()[:3]]
-        check(all(math.isfinite(t) and t > 0 for t in times), f"bench times not finite and positive: {ln}")
-        check(m.group(4) == "0", f"a bench config overflowed: {ln}")
-        phase("bench", f"{ln}  [{smi}]")
-    check(payload["device"] == smi and payload["vs_baseline"] is None and payload["value"] > 0,
-          f"bench payload {payload}")
-    phase("bench", f"--all --stress --frames 32: {json.dumps(payload)}")
-
-    # (c) The headline alone, twice more, each in its own process.
-    values = [payload["value"]] + [run_bench("--frames", "64")[0]["value"] for _ in range(2)]
-    phase("bench", f"headline ms/frame in fresh processes: {values[0]} (--all --stress, 32 frames), "
-          f"{values[1]}, {values[2]} (alone, 64 frames)  [{smi}]")
 
 
 MESH_FIELDS = ("positions", "tex_coords", "normals", "pos_idx", "tex_idx", "normal_idx")
@@ -3251,9 +3165,6 @@ def main() -> int:
     profile_phase(dev, RenderConfig(), smi, scene)
     lap("profile")
 
-    # -- 16. bench ------------------------------------------------------------
-    bench_phase(dev, smi, record)
-    lap("bench")
     src = "tiny_renderer_tpu_torch/csrc/raster.cu"
     rp = "tiny_renderer_tpu/ops/raster_pallas.py"
     entries = [

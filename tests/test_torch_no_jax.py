@@ -70,15 +70,6 @@ _SCRIPT = textwrap.dedent("""
                       backend="dense")
     dense.set_light_direction([0.3, 0.0, 0.95])
     assert (dense.get_frame_buffer() > 0).any()
-    # The bench harness, its CPU main once at 64x64 on a small scene.
-    import contextlib, io, json
-    from tiny_renderer_tpu_torch import bench
-    bench.bench_scene = lambda asset, subdivide=0: (model, "small sphere")
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        assert bench.main(["--backend", "cpu", "--size", "64", "--frames", "8"]) == 0
-    payload = json.loads(out.getvalue().splitlines()[-1])
-    assert payload["device"] == "cpu" and payload["value"] > 0, payload
     loaded = [m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "tiny_renderer_tpu."))]
     assert loaded == ["jax"] and sys.modules["jax"] is None and "bench" not in sys.modules, loaded
     print("OK", trt.PIPELINE_NAMES)
