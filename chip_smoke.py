@@ -18,6 +18,19 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              60-frame burst byte-equal to the plain layer's eager frames;
              vertex launches per replay; kernels a frame and the layer's
              time against the plain layer's (vertex_phase).
+2c. occlusion — csrc/occlusion.cu (the occlusion probe, one thread a
+             fragment): the kernel bit-equal to shaders.occlusion_reference
+             on the card under orbit, random and degenerate lights (its
+             frame constants), on adversarial fragments (NaN, +-inf, far off
+             the plane, exact halves; 1, 16 and 33 samples, the swizzled
+             plane on and off) and on the 800x800 frame's chunk fragments;
+             Scene.render and a 60-frame render_sequence byte-equal to the
+             plain probe's eager frames under the default config and
+             compact_shade=False; in the profiler one occlusion kernel ran
+             a replayed frame, and kernels a frame; occlusion launches
+             recorded a replayed frame (one a chunk body in the graph) and
+             none for shadow; the kernel's device ms alone and in a graph
+             beside its bound (occlusion_phase, runnable alone).
 3. kernel  — every kernel mode against its plain torch twin on seeded random
              soups, the depth tie case, the flagship scene's two passes and
              five adversarial screen-space scenes (large and huge triangles,
@@ -92,7 +105,7 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              from csrc/graph_if.cu), at three coverages: the flagship moved
              off screen (no covered strip), the stock pose, and a wall that
              covers every strip.  For the seven pipelines, occlusion under
-             occlusion_dedup (its lax.cond nested in the chunks) and shadow
+             occlusion_dedup (the same kernel on the card) and shadow
              under strip_mask + strip_planes + nopack: the replayed
              Scene.render byte-equal to the eager render_frame and a
              4-frame replayed burst's frames to the eager burst's; the
@@ -809,6 +822,295 @@ def vertex_phase(dev, smi):
     return result
 
 
+OCCLUSION_CELL = "diablo-occlusion.orbit-burst"
+OCCLUSION_SEED = 2_147_533_209
+OCCLUSION_LIGHTS = 48  # orbit poses under which the kernel is held to the plain version
+OCCLUSION_RANDOM = 32  # random light directions, likewise
+OCCLUSION_LIGHT_FRAGMENTS = 512  # fragments a light
+# Light directions in model space (i_m the identity), likewise: aligned
+# with +z, opposite, a hair off, zero, non-finite, huge.
+OCCLUSION_DEGENERATE = ([0.0, 0.0, 1.0], [0.0, 0.0, -1.0], [1e-8, 0.0, 1.0], [0.0, 1e-9, -1.0], [0.0, 0.0, 0.0],
+                        [math.nan, 0.0, 1.0], [math.inf, 0.0, 0.0], [3e30, 3e30, 3e30], [1e-30, 0.0, 0.0])
+OCCLUSION_SAMPLES = (1, 16, 33)
+OCCLUSION_TILES = (0, 16)
+OCCLUSION_FRAGMENTS = 200_000  # adversarial fragments a case
+# Fragment values beside the seeded ones: off the plane, non-finite, and
+# coordinates on exact halves.
+OCCLUSION_SPECIAL = (math.nan, math.inf, -math.inf, 1e30, -1e30, 4e9, -0.0, 0.5, 1.5, 2.5, -0.5, -2.5,
+                     399.5, 799.5, 800.5, 1e-30)
+OCCLUSION_CONFIGS = {"default": {}, "compact_shade=False": dict(compact_shade=False)}
+OCCLUSION_POSES = 3  # Scene.render poses a config
+OCCLUSION_TIMED = 200
+OCCLUSION_KERNEL = re.compile(r"occlusion_kernel")
+
+
+def plain_occlusion():
+    """The probe's plain torch version (shaders.occlusion_reference) on
+    CUDA tensors too, inside the returned context: for eager frames, since
+    a graph captured inside it would be cached with the plain probe."""
+    from tiny_renderer_tpu_torch.ops import occlusion_cuda
+    from tiny_renderer_tpu_torch.pipelines import shaders
+
+    return mock.patch.object(
+        occlusion_cuda, "coefficient",
+        lambda xf, yf, zfrag, plane, uniforms, directions, config, tile=0:
+            shaders.occlusion_reference(xf, yf, zfrag, plane, uniforms, config))
+
+
+def occlusion_fragments(rng, n, width, height, dev):
+    """n seeded fragments over and around a width x height screen, a fifth
+    of each coordinate set to OCCLUSION_SPECIAL values and a tenth of them
+    on exact halves."""
+    xf = rng.uniform(-80, width + 80, n).astype(np.float32)
+    yf = rng.uniform(-80, height + 80, n).astype(np.float32)
+    zf = rng.uniform(-10, 265, n).astype(np.float32)
+    for a in (xf, yf, zf):
+        at = rng.choice(n, size=n // 5, replace=False)
+        a[at] = rng.choice(np.float32(OCCLUSION_SPECIAL), size=at.size)
+    halves = np.arange(n // 10, dtype=np.float32) % np.float32(width) - np.float32(0.5)
+    xf[:halves.size] = halves
+    yf[:halves.size] = halves[::-1] % np.float32(height)
+    return [torch.from_numpy(a).to(dev) for a in (xf, yf, zf)]
+
+
+def occlusion_phase(dev, smi):
+    """Phase 2c: csrc/occlusion.cu on the card.  Builds it (ptxas registers
+    and spills printed).  The kernel bit-equal to
+    shaders.occlusion_reference on the same CUDA tensors (NaN against NaN):
+    under the uniforms of OCCLUSION_LIGHTS orbit poses of the cell, random
+    lights and degenerate ones, on a ramp plane (each texel its own index,
+    so a sample index moved by the frame constants the kernel's blocks
+    compute, rotation_between's acosf/sinf/cosf included, moves the
+    result); on adversarial fragments at 800x800, for 1, 16 and 33
+    samples, the swizzled plane on and off, the frame's uniforms and
+    identity ones; and on the chunk fragments of the cell's 800x800 frame.
+    (The kernel ignores occlusion_dedup, whose dedup_gather the CPU tests
+    hold to JAX.)  Then under each of OCCLUSION_CONFIGS: Scene.render
+    (replayed) byte-equal to render_frame with the plain probe at
+    OCCLUSION_POSES poses, and a 60-frame render_sequence byte-equal to the
+    plain probe's eager burst; torch.profiler over a replayed
+    render_sequence: one occlusion kernel ran a frame (the stand-in covers
+    fewer strips than the first chunk holds), and kernels a frame.
+    occlusion_cuda.LAUNCHES counts the launches the graph records, one a
+    chunk body whether its IF node runs it or not: checked at that, and at
+    none for shadow frames.  The kernel's device ms alone (the launch queue
+    held full) and in a replayed graph beside the plain probe's graph and
+    the bound (benchmark/roofline_probe.py at the frame's covered pixels).
+    Returns the numbers for the kernel table."""
+    from benchmark import harness, roofline_probe, tracing
+    from benchmark.orbit import Orbit
+    from tiny_renderer_tpu_torch import Scene
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.ops import mathlib as ml
+    from tiny_renderer_tpu_torch.ops import occlusion_cuda, raster_cuda
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+    from tiny_renderer_tpu_torch.pipelines import shaders
+    from tiny_renderer_tpu_torch.pipelines.graphs import CapturedGraph
+
+    lib, seconds, log = raster_cuda.build(force=True, source=occlusion_cuda.SOURCE)
+    phase("occlusion", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s")
+    registers = [line.strip() for line in log.splitlines()
+                 if "Compiling entry" in line or "registers" in line or "spill" in line]
+    for line in registers:
+        phase("occlusion", line)
+
+    cell = harness.find_cell(OCCLUSION_CELL)
+    sc = harness.build_scene(cell.config, OCCLUSION_SEED, dev)[0]
+    config = sc.config.resolve("occlusion")
+    spec = tframe.PIPELINES["occlusion"]
+    rng = np.random.default_rng(OCCLUSION_SEED)
+    orbit = Orbit(OCCLUSION_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
+    origin, up_y = [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]
+
+    def view(light, look_from):
+        return [to_tensor(np.float32(v), dev) for v in (light, look_from, origin, up_y)]
+
+    def orbit_views(first, count):
+        return [view([math.sin(li), 0.0, math.cos(li)], [math.sin(c), 0.0, math.cos(c)])
+                for c, li in zip(*orbit.angles(first, count))]
+
+    # The frame constants, through the kernel: under each light, fragments
+    # on the screen over a ramp plane against the plain version.
+    w, h = config.width, config.height
+    uniform_sets = [tframe._uniforms(spec, config, *v)[1] for v in orbit_views(0, OCCLUSION_LIGHTS)]
+    uniform_sets += [tframe._uniforms(spec, config, *view(rng.normal(size=3), [0.2, 0.1, 0.98]))[1]
+                     for _ in range(OCCLUSION_RANDOM)]
+    base = uniform_sets[0]
+    eye = torch.eye(4, dtype=torch.float32, device=dev)
+    uniform_sets += [dict(base, i_m=eye, t_light_direction=to_tensor(np.float32(v), dev))
+                     for v in OCCLUSION_DEGENERATE]
+    ramp = torch.arange(h * w, dtype=torch.float32, device=dev).reshape(h, w)
+    differ, nan_payloads, moved = [], 0, 0
+    for i, u in enumerate(uniform_sets):
+        xf, yf, zf = (torch.from_numpy(rng.uniform(0, hi, OCCLUSION_LIGHT_FRAGMENTS).astype(np.float32)).to(dev)
+                      for hi in (w, h, 255))
+        got = shaders.occlusion_coefficient(xf, yf, zf, ramp, u, config)
+        want = shaders.occlusion_reference(xf, yf, zf, ramp, u, config)
+        ok, nans = same_bits(got, want)
+        nan_payloads += nans
+        moved += bool((want < 1).any())
+        if not ok:
+            at = int(((got.view(torch.int32) != want.view(torch.int32))
+                      & ~(torch.isnan(got) & torch.isnan(want))).nonzero()[0, 0])
+            differ.append((i, at, float(got[at]), float(want[at])))
+    torch.cuda.synchronize()
+    phase("occlusion", f"{len(uniform_sets)} lights ({OCCLUSION_LIGHTS} orbit, {OCCLUSION_RANDOM} random, "
+          f"{len(OCCLUSION_DEGENERATE)} degenerate), {OCCLUSION_LIGHT_FRAGMENTS} fragments each on a ramp plane: "
+          f"{len(differ)} differ from the plain version, {moved} occlude some fragment (NaN payloads that differ: "
+          f"{nan_payloads}){'; first (light, fragment, kernel, plain) ' + str(differ[0]) if differ else ''}")
+    check(not differ, "under some light the kernel differs from the plain version")
+    check(moved >= OCCLUSION_LIGHTS, "too few lights occlude a fragment of the ramp plane")
+
+    # The kernel against the plain version on adversarial fragments.
+    rendered = tframe.render_frame(sc._geom, sc._textures, *orbit_views(0, 1)[0], pipeline="occlusion",
+                                   config=config)
+    planes = {"frame's": rendered["shadow"], "seeded": torch.from_numpy(
+        np.where(rng.random((h, w)) < 0.2, np.float32(ml.F32_MIN),
+                 rng.uniform(-5, 260, (h, w)).astype(np.float32))).to(dev)}
+    identity = {"i_vpmv": eye, "shadow_matrix": eye, "i_m": eye,
+                "t_light_direction": to_tensor(np.float32([0.0, 0.0, 1.0]), dev)}
+    cases = 0
+    for n in OCCLUSION_SAMPLES:
+        for tile in OCCLUSION_TILES:
+            for uname, u, step in (("frame", base, 0.02), ("identity", identity, 3.0)):
+                cfg = dataclasses.replace(config, occlusion_samples=n, shadow_tile=tile, occlusion_step=step)
+                for pname, p in planes.items():
+                    p = shaders.swizzle_plane(p, tile) if tile else p
+                    xf, yf, zf = occlusion_fragments(rng, OCCLUSION_FRAGMENTS, w, h, dev)
+                    got = shaders.occlusion_coefficient(xf, yf, zf, p, u, cfg)
+                    want = shaders.occlusion_reference(xf, yf, zf, p, u, cfg)
+                    ok, nans = same_bits(got, want)
+                    label = f"n {n}, tile {tile}, {uname} uniforms, {pname} plane"
+                    if not ok:
+                        bad = (got.view(torch.int32) != want.view(torch.int32)) & ~(
+                            torch.isnan(got) & torch.isnan(want))
+                        at = int(bad.nonzero()[0, 0])
+                        phase("occlusion", f"{label}: {int(bad.sum())} of {got.numel()} differ; first at {at}: "
+                              f"x {float(xf[at])!r} y {float(yf[at])!r} z {float(zf[at])!r} -> "
+                              f"{float(got[at])!r} against {float(want[at])!r}")
+                    check(ok, f"{label}: the kernel differs from the plain version")
+                    check(bool((want < 1).any()) or n == 1, f"{label}: no fragment occluded")
+                    nan_payloads += nans
+                    cases += 1
+    torch.cuda.synchronize()
+    phase("occlusion", f"{cases} adversarial cases of {OCCLUSION_FRAGMENTS} fragments ({w}x{h}; samples "
+          f"{OCCLUSION_SAMPLES}, tiles {OCCLUSION_TILES}, the frame's and identity uniforms, the "
+          f"frame's and a seeded plane) bit-equal to the plain version on the card (NaN payloads that differ: "
+          f"{nan_payloads})")
+
+    # The chunk fragments of the cell's frame: the kernel's outputs recorded
+    # as the eager frame ran, against the plain version on the same inputs.
+    calls = []
+    launch = occlusion_cuda.coefficient
+
+    def recorded(*a, **k):
+        occ = launch(*a, **k)
+        calls.append((a, k, occ))
+        return occ
+
+    with mock.patch.object(occlusion_cuda, "coefficient", recorded):
+        tframe.render_frame(sc._geom, sc._textures, *orbit_views(0, 1)[0], pipeline="occlusion", config=config)
+    for (xf, yf, zf, p, u, _dirs, cfg), _, occ in calls:
+        ok, _ = same_bits(occ, shaders.occlusion_reference(xf, yf, zf, p, u, cfg))
+        check(ok, f"the frame's chunk of {xf.numel()} fragments: the kernel differs from the plain version")
+    chunk_args = calls[0]
+    pixels = int((rendered["z"] > ml.F32_MIN).sum())
+    phase("occlusion", f"the {w}x{h} frame's {len(calls)} chunk bodies ({[c[0][0].numel() for c in calls]} "
+          f"fragments) bit-equal to the plain version; {pixels} covered pixels")
+    del calls
+
+    # Frames and bursts against the plain probe's eager ones.
+    n_seq = cell.traffic["frames_per_call"]
+    cams, ligs = orbit.angles(200, n_seq)
+    bodies, ran = {}, {}
+    for cname, knobs in OCCLUSION_CONFIGS.items():
+        s = Scene(sc.model, "occlusion", dataclasses.replace(sc.config, **knobs), device=dev)
+        rc = s.config.resolve("occlusion")
+        n_strips = -(-rc.width * rc.height // rc.strip_len)
+        slots = -(-n_strips // rc.strip_batch) * rc.strip_batch
+        per_frame = len(tframe.shade_chunks(slots, rc.strip_batch)) if rc.compact_shade else 1
+        bodies[cname] = per_frame
+        for v, (c, li) in zip(orbit_views(100, OCCLUSION_POSES), zip(*orbit.angles(100, OCCLUSION_POSES))):
+            s.set_light_direction([math.sin(li), 0.0, math.cos(li)])
+            s.set_camera([math.sin(c), 0.0, math.cos(c)], origin, up_y)
+            s.render()  # the first call captures
+            occlusion_cuda.reset_launches()
+            got = s.render()
+            check(occlusion_cuda.LAUNCHES == {"coefficient": per_frame},
+                  f"{cname}: occlusion launches recorded a replayed frame {occlusion_cuda.LAUNCHES}, not {per_frame}")
+            with plain_occlusion():
+                want = tframe.render_frame(s._geom, s._textures, *v, pipeline="occlusion", config=rc)
+            for k in ("frame", "z", "shadow", "overflow"):
+                check(torch.equal(got[k], want[k]), f"{cname}: replayed {k} differs from the plain probe's frame")
+        s.render_sequence(cams, ligs)  # captures the burst frame
+        occlusion_cuda.reset_launches()
+        seq = s.render_sequence(cams, ligs)
+        check(occlusion_cuda.LAUNCHES == {"coefficient": per_frame * n_seq},
+              f"{cname}: occlusion launches recorded in a {n_seq}-frame render_sequence {occlusion_cuda.LAUNCHES}")
+        with plain_occlusion():
+            want = tframe._render_burst_eager(s._geom, s._textures, to_tensor(cams, dev), to_tensor(ligs, dev),
+                                              pipeline="occlusion", config=rc, keep_frames=True)
+        check(np.array_equal(seq, want["frames"].cpu().numpy()[:, ::-1]),
+              f"{cname}: the {n_seq}-frame render_sequence differs from the plain probe's eager burst")
+        check(not bool(want["overflow"].any()), f"{cname}: the burst overflowed")
+        # The launches that ran: the profiler over a replayed render_sequence.
+        trace = tracing.summarize(tracing.profile(lambda: s.render_sequence(cams, ligs), dev)[0], frames=n_seq)
+        ran_ms = [t * 1e3 for name, t in trace.kernels if OCCLUSION_KERNEL.search(name)]
+        ran[cname] = len(ran_ms) / n_seq
+        check(len(ran_ms) == n_seq, f"{cname}: {len(ran_ms)} occlusion kernels ran in a profiled replayed "
+              f"{n_seq}-frame render_sequence, not one a frame")
+        if cname == "default":
+            ok_ms, kernels_a_frame = ran_ms, len(trace.kernels) / n_seq
+    shadow = Scene(sc.model, "shadow", sc.config, device=dev)
+    shadow.render()
+    shadow.render_sequence(cams[:4], ligs[:4])
+    occlusion_cuda.reset_launches()
+    shadow.render()
+    shadow.render_sequence(cams[:4], ligs[:4])
+    torch.cuda.synchronize()
+    check(occlusion_cuda.LAUNCHES == {"coefficient": 0},
+          f"shadow frames launched the occlusion kernel: {occlusion_cuda.LAUNCHES}")
+    phase("occlusion", f"Scene.render at {OCCLUSION_POSES} poses and a {n_seq}-frame render_sequence under "
+          f"{list(OCCLUSION_CONFIGS)} byte-equal to the plain probe's eager frames; occlusion kernels that ran a "
+          f"replayed frame (profiler) {ran}; launches recorded a replayed frame {bodies} (one a chunk body in the "
+          f"graph, run or skipped), 0 for shadow frames")
+
+    # The kernel's time: alone with the launch queue held full, and as a
+    # replayed graph beside the plain probe's graph.
+    (xf, yf, zf, p, u, dirs, cfg), k, _ = chunk_args
+    tile = k.get("tile", 0)
+
+    def probe(x):
+        return shaders.occlusion_coefficient(x, yf, zf, p, u, cfg)
+
+    alone = time_launches(lambda: occlusion_cuda.coefficient(xf, yf, zf, p, u, dirs, cfg, tile=tile),
+                          OCCLUSION_TIMED, hold=True)
+    g_kernel = CapturedGraph(probe, [xf], "the occlusion kernel")
+    with plain_occlusion():
+        g_plain = CapturedGraph(probe, [xf], "the plain occlusion probe")
+    check(g_kernel.occlusion_launches == {"coefficient": 1} and not any(g_plain.occlusion_launches.values()),
+          f"occlusion launches recorded: {g_kernel.occlusion_launches}, plain {g_plain.occlusion_launches}")
+    ms = {}
+    for label, g in (("plain", g_plain), ("kernel", g_kernel), ("kernel2", g_kernel), ("plain2", g_plain)):
+        ms[label] = time_launches(lambda g=g: g.graph.replay(), OCCLUSION_TIMED, hold=True)
+    ms_kernel, ms_plain = min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"])
+    bound_ms = roofline_probe.least_seconds(w, h, pixels) * 1e3
+    result = {
+        "device_ms": alone, "graph_ms": ms_kernel, "in_burst_ms": float(np.mean(ok_ms)), "plain_graph_ms": ms_plain,
+        "fragments": xf.numel(), "pixels": pixels, "bound_ms": bound_ms, "bytes": roofline_probe.probe_bytes(w, h, pixels),
+        "kernels_per_frame": kernels_a_frame, "launches_ran_a_frame": ran, "launches_recorded_a_frame": bodies, "registers": registers,
+        "build_s": seconds,
+    }
+    phase("occlusion", f"profiled replayed {n_seq}-frame render_sequence: {kernels_a_frame:.2f} kernels a frame, "
+          f"{len(ok_ms) / n_seq:.0f} occlusion kernel a frame ran, {result['in_burst_ms']:.4f} ms each")
+    phase("occlusion", f"the kernel on the frame's first chunk ({xf.numel()} fragments): {alone:.4f} ms a launch "
+          f"(queue held full), {ms_kernel:.4f} ms a replayed graph, against the plain probe's graph "
+          f"{ms_plain:.4f} ms; bound {bound_ms * 1e3:.3f} us ({result['bytes']} B at 3.35 TB/s, {pixels} covered "
+          f"pixels), {bound_ms / alone:.2%} of it alone, {bound_ms / result['in_burst_ms']:.2%} in the burst  [{smi}]")
+    print(json.dumps({"occlusion": result}), flush=True)
+    return result
+
+
 def entry_phase(dev, model, config, smi, record, twin, pcams, pligs, shadow_scene, default_scene):
     """Phase 12: the entry points above the frame path (register_pipeline,
     the CLI, the interactive loop, the frame server), every scene starting
@@ -1496,8 +1798,8 @@ def shade_phase(dev, pmodel, smi, record):
     every strip (scripts/torch_shade_device_time.py's coverage_models).
     Every pipeline's replayed Scene.render byte-equal to the eager
     render_frame and its replayed burst's frames to the eager burst's (and
-    occlusion under occlusion_dedup, whose lax.cond is nested in the chunk
-    bodies, and shadow under strip_mask + strip_planes + nopack), and
+    occlusion under occlusion_dedup, which on the card runs the same
+    occlusion kernel, and shadow under strip_mask + strip_planes + nopack), and
     SHARD_CONFIGS' replayed sharded frames to the eager sharded frame and
     to render_frame.  torch.profiler over replayed shadow frames: GPU
     kernels per frame at each coverage and the chunk bodies they ran (the
@@ -2623,6 +2925,10 @@ def main() -> int:
     # -- 2b. vertex -----------------------------------------------------------
     vertex_phase(dev, smi)
     lap("vertex")
+
+    # -- 2c. occlusion --------------------------------------------------------
+    occlusion_phase(dev, smi)
+    lap("occlusion")
 
     cfg = RenderConfig().resolve("shadow")  # 800x800, the default config
     grid = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)

@@ -38,8 +38,9 @@ class RenderConfig:
     # Specular pipeline constant (shader.rs:521).
     specular_scale: float = 0.6
 
-    # Collapse duplicate shadow-map indices in the occlusion probe
-    # (shaders.dedup_gather; exact, the same frame either way).
+    # Collapse duplicate shadow-map indices in the occlusion probe's plain
+    # torch version (shaders.dedup_gather, on CPU tensors; exact, the same
+    # frame either way).  The probe's CUDA kernel serves both settings.
     occlusion_dedup: bool = False
 
     # Raster screen tile: the unit of binning (the port's kernel splits it

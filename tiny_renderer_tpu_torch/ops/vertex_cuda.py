@@ -81,14 +81,14 @@ def _raise_on(err, what):
         raise RuntimeError(f"{what} launch failed: {_library().vertex_error_string(err).decode()}")
 
 
-def _check(args, device):
+def check_float32(args, device):
     """Raise unless each (name, tensor, shape) of `args` is a contiguous
-    float32 tensor of `shape` (None first: any number of rows), and then
-    unless each lies on `device`, a CUDA device."""
+    float32 tensor of `shape` (None: any shape; None first: any number of
+    rows), and then unless each lies on `device`, a CUDA device."""
     for name, t, shape in args:
-        got = tuple(t.shape) if shape[0] is not None else (None, *t.shape[1:])
-        if t.dtype != torch.float32 or got != shape or not t.is_contiguous():
-            want = "x".join("T" if s is None else str(s) for s in shape)
+        got = tuple(t.shape) if shape is None or shape[0] is not None else (None, *t.shape[1:])
+        if t.dtype != torch.float32 or got != (shape or got) or not t.is_contiguous():
+            want = "any" if shape is None else "x".join("T" if s is None else str(s) for s in shape)
             raise ValueError(f"{name}: expected a contiguous ({want}) float32 tensor, got "
                              f"{'' if t.is_contiguous() else 'a non-contiguous '}{tuple(t.shape)} {t.dtype}")
     for name, t, _ in args:
@@ -121,7 +121,7 @@ def prepare(config, light_direction, look_from, look_at, up, inverses=False):
     from (3,) float32 CUDA vectors, in one launch on the current stream:
     unpack's views into a new buffer."""
     dev = look_from.device
-    _check([(name, v, (3,)) for name, v in (("light_direction", light_direction), ("look_from", look_from),
+    check_float32([(name, v, (3,)) for name, v in (("light_direction", light_direction), ("look_from", look_from),
                                              ("look_at", look_at), ("up", up))], dev)
     viewport, projection = ml.viewport_projection(config.width, config.height, config.depth,
                                                   config.projection_coef)
@@ -156,7 +156,7 @@ def setup(tris, uniforms, config, *, matrix_key="vpmv", cull=True, needs=(), exa
     args = [("pos", pos, (None, 3, 3)), ("uv_raw", tris["uv_raw"], (T, 3, 2)), (matrix_key, matrix, (4, 4)),
             ("camera_direction", camera_direction, (3,)), ("it_m", it_m, (4, 4)),
             ("t_light_direction", light, (3,)), ("normal", normal, (T, 3, 3))]
-    _check([a for a in args if a[1] is not None], dev)
+    check_float32([a for a in args if a[1] is not None], dev)
 
     mode, per_tri = _INTENSITY[intensity]
     ints = torch.empty((_size(SETUP_INTS) * T,), dtype=torch.int32, device=dev)

@@ -29,7 +29,7 @@ import weakref
 
 import torch
 
-from ..ops import raster_cuda, vertex_cuda
+from ..ops import occlusion_cuda, raster_cuda, vertex_cuda
 from ..utils import timing
 
 # Captured graphs kept alive at once by a GraphCache (least recently used
@@ -157,15 +157,16 @@ class CapturedGraph:
     Calling it copies new inputs into the static inputs, replays the graph
     and returns fn's outputs from the capture, which the next replay
     overwrites: callers hold `lock` around the call and the reads of the
-    outputs.  Each replay adds the raster and vertex launches the capture
-    recorded to raster_cuda.LAUNCHES and vertex_cuda.LAUNCHES.  The
-    capture's allocations go to a private pool released with the graph; fn
-    may branch with device_if.  `marked`: a frame graph, whose timing.mark
-    calls record stage stamps when the tracer is on at the capture.
-    Attributes: outputs, launches (raster, by mode, per replay),
-    vertex_launches (by kernel, per replay), marks (timing.FrameMarks, or
-    None), capture_s (warm-up + capture seconds), pool_bytes (device memory
-    the capture reserved).
+    outputs.  Each replay adds the raster, vertex and occlusion launches
+    the capture recorded to raster_cuda.LAUNCHES, vertex_cuda.LAUNCHES and
+    occlusion_cuda.LAUNCHES.  The capture's allocations go to a private
+    pool released with the graph; fn may branch with device_if.  `marked`:
+    a frame graph, whose timing.mark calls record stage stamps when the
+    tracer is on at the capture.  Attributes: outputs, launches (raster,
+    by mode, per replay), vertex_launches (by kernel, per replay),
+    occlusion_launches (per replay), marks (timing.FrameMarks, or None),
+    capture_s (warm-up + capture seconds), pool_bytes (device memory the
+    capture reserved).
     Spans: graph.capture (warm-up and capture), graph.replay (the input
     copies and the launch).
     """
@@ -210,7 +211,8 @@ class CapturedGraph:
                 # The side stream is on `dev`; the default capture stream is
                 # made once, on whichever device was current then.
                 with raster_cuda.recording() as self.launches, \
-                        vertex_cuda.recording() as self.vertex_launches, timing.marking(ring) as self.marks, \
+                        vertex_cuda.recording() as self.vertex_launches, \
+                        occlusion_cuda.recording() as self.occlusion_launches, timing.marking(ring) as self.marks, \
                         torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
                     self.outputs = fn(*self.inputs)
             except RuntimeError as e:
@@ -238,6 +240,7 @@ class CapturedGraph:
                 self.marks.ring.issue(self.marks, lambda: self._launch(inputs))
         raster_cuda.replayed(self.launches)
         vertex_cuda.replayed(self.vertex_launches)
+        occlusion_cuda.replayed(self.occlusion_launches)
         return self.outputs
 
     def _launch(self, inputs):

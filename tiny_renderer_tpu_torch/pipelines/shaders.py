@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import mathlib as ml
+from ..ops import occlusion_cuda
 from ..utils import timing
 from . import graphs
 
@@ -470,6 +471,16 @@ def shade_shadow(frag, uniforms, textures, config):
     return ml.color_blend(color, _color(BLACK, color.device), frag["intensity"] * shadow_coef)
 
 
+def occlusion_directions(n, device):
+    """The probe's n sample directions (sin a, 0, cos a) at a = i * 2 pi / n,
+    an (n, 3) float32 constant on `device` (mathlib.const): numpy float32
+    sin/cos of float32 angles, the bits the JAX module uses."""
+    angle_coef = np.float32(2.0 * np.pi) / np.float32(n)
+    ang = [np.float32(angle_coef * np.float32(i)) for i in range(n)]
+    dirs = np.array([[np.sin(a), 0.0, np.cos(a)] for a in ang], dtype=np.float32)
+    return ml.const(tuple(map(tuple, dirs.tolist())), device)
+
+
 def occlusion_sample_coords(xf, yf, zfrag, uniforms, config):
     """Float shadow-space coords of the occlusion probe (shader.rs:882-933).
 
@@ -485,10 +496,7 @@ def occlusion_sample_coords(xf, yf, zfrag, uniforms, config):
     rot = ml.rotation_between(ml.const((0.0, 0.0, 1.0), light.device), light)
 
     n = config.occlusion_samples
-    angle_coef = np.float32(2.0 * np.pi) / np.float32(n)
-    ang = [np.float32(angle_coef * np.float32(i)) for i in range(n)]
-    dirs = np.array([[np.sin(a), 0.0, np.cos(a)] for a in ang], dtype=np.float32)
-    dirs = ml.const(tuple(map(tuple, dirs.tolist())), light.device)
+    dirs = occlusion_directions(n, light.device)
     # All n samples at once: the same elementwise arithmetic per sample.
     step = mat3_vec(rot, dirs) * ml.f32(config.occlusion_step)
     sample = world + step.reshape(n, *([1] * (world.ndim - 1)), 3)  # (n, ..., 3)
@@ -550,15 +558,14 @@ def dedup_gather(table, flat_idx, cap_shift=3):
     return out.reshape(shape)
 
 
-def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
-    """The occlusion core (shader.rs:882-941) for any batch of fragments:
-    all n+1 shadow-buffer indices computed elementwise, then ONE gather
-    (dedup_gather under config.occlusion_dedup: the same values).  Traced,
-    the probe is the stage `probe` of its frame (the stage up to it keeps
-    `shade`) and the frame counts its covered pixels (timing.frame_pixels)."""
+def occlusion_reference(xf, yf, zfrag, shadow_buffer, uniforms, config):
+    """The occlusion core (shader.rs:882-941) in plain torch, for any batch
+    of fragments: all n+1 shadow-buffer indices computed elementwise, then
+    ONE gather (dedup_gather under config.occlusion_dedup: the same
+    values), then the update.  occlusion_coefficient runs it on CPU
+    tensors; on CUDA tensors the kernel of ops/occlusion_cuda.py equals it
+    bit for bit."""
     n = config.occlusion_samples
-    timing.mark("shade")
-    timing.probe_pixels()
     sxs, sys = occlusion_sample_coords(xf, yf, zfrag, uniforms, config)
     flat = shadow_flat_indices(
         sxs, sys, shadow_buffer.shape, config.width,
@@ -566,7 +573,26 @@ def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
     )
     table = shadow_buffer.reshape(-1)
     vals = dedup_gather(table, flat) if config.occlusion_dedup else table[flat]  # (n+1, ...)
-    occ = occlusion_update(vals[:n], vals[n], config)
+    return occlusion_update(vals[:n], vals[n], config)
+
+
+def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
+    """The occlusion coefficient of any batch of fragments: on CUDA tensors
+    one launch of the kernel of ops/occlusion_cuda.py (either setting of
+    config.occlusion_dedup: the values are the same), on CPU tensors
+    occlusion_reference.  Traced, the probe is the stage `probe` of its
+    frame (the stage up to it keeps `shade`) and the frame counts its
+    covered pixels (timing.frame_pixels)."""
+    timing.mark("shade")
+    timing.probe_pixels()
+    if xf.is_cuda:
+        occ = occlusion_cuda.coefficient(
+            xf.contiguous(), yf.contiguous(), zfrag.contiguous(), shadow_buffer.contiguous(), uniforms,
+            occlusion_directions(config.occlusion_samples, xf.device), config,
+            tile=plane_tile_effective(config, shadow_buffer.shape),
+        )
+    else:
+        occ = occlusion_reference(xf, yf, zfrag, shadow_buffer, uniforms, config)
     timing.mark("probe")
     return occ
 

@@ -496,8 +496,9 @@ def snapshot() -> dict:
     here): spans (name, start_ns, end_ns, ms, id, parent id, call id), counters
     (while the tracer is on, with graph.pool_bytes: the pools of the
     captured graphs alive), the drained device frames, the spans and frames
-    dropped, and copies of raster_cuda.LAUNCHES and vertex_cuda.LAUNCHES."""
-    from ..ops import raster_cuda, vertex_cuda
+    dropped, and copies of raster_cuda.LAUNCHES, vertex_cuda.LAUNCHES and
+    occlusion_cuda.LAUNCHES."""
+    from ..ops import occlusion_cuda, raster_cuda, vertex_cuda
     from ..pipelines import graphs
 
     drain(everything=True)
@@ -518,6 +519,7 @@ def snapshot() -> dict:
         "dropped": dropped,
         "launches": dict(raster_cuda.LAUNCHES),
         "vertex_launches": dict(vertex_cuda.LAUNCHES),
+        "occlusion_launches": dict(occlusion_cuda.LAUNCHES),
     }
 
 
