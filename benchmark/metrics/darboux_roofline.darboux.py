@@ -1,0 +1,19 @@
+"""The darboux shade's share of its roofline: the least time of a frame's
+shade at its covered pixels (roofline_darboux: the pixels the program
+stamps in the frame graph) over the frame's darboux stage (its `darboux`
+stamps), the median over the frames of a traced stretch of the burst mix
+(program_trace), in %."""
+
+import statistics
+
+from benchmark import program_trace, roofline_darboux
+
+UNIT = "%"
+
+
+def read(r):
+    w, h = r.config["width"], r.config["height"]
+    shares = [100.0 * roofline_darboux.least_seconds(w, h, f["pixels"]) / (f["stages"]["darboux"] / 1e3)
+              for f in program_trace.frames(r, "orbit-burst")
+              if f.get("pixels") is not None and f["stages"].get("darboux")]
+    return statistics.median(shares) if shares else None

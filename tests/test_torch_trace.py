@@ -15,6 +15,9 @@ version (stages, spans, chunks, call ids, overwritten frames dropped); a
 mark whose body did not run reads absent, not stale; a snapshot taken after
 the tracer is off drains what it issued while on; an occlusion frame's
 probe stage and covered pixels, eagerly and under marks on the CPU ring;
+a darboux frame's darboux_setup and darboux stages and covered pixels
+likewise, a skipped chunk body's darboux marks absent, and drained frames'
+pixels in their shade's counter (the shadow frame's marks unchanged);
 render_burst's host destination filled byte-equal to its kept frames, and
 render_sequence on the CPU eager, its spans kept, sequence.overlapped 0.
 
@@ -26,7 +29,8 @@ frame and its span within EVENT_EXTRA_MS of CUDA events around the same
 replay; a burst traced by torch.profiler with the tracer off
 holds the kernels it held before the tracer ran, the traced graph those and
 one mark kernel a mark; a traced occlusion burst's probe stage and covered
-pixels, beside the shadow frame's unchanged marks.
+pixels, beside the shadow frame's unchanged marks; a traced darboux burst's
+two stages and covered pixels.
 """
 
 import collections
@@ -381,6 +385,95 @@ def test_occlusion_probe_and_pixels_cpu(tracer):
     assert "occlusion.pixels" not in timing.snapshot()["counters"]
 
 
+def darboux_scene(radius=0.45, size=64, **knobs):
+    model = Model(mesh=make_uv_sphere(radius, 8, 10), **make_textures(16))
+    s = Scene(model, "darboux", RenderConfig(width=size, height=size, **knobs), device="cpu")
+    s.set_light_direction([0.3, 0.0, 0.95])
+    s.set_camera([0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    return s
+
+
+DARBOUX_MARKS = ["vertex", "darboux_setup", "vertex", "binning", "raster", "shade", "darboux", "shade"]
+
+
+def test_darboux_stages_and_pixels_cpu(tracer):
+    """A traced eager darboux frame counts its covered pixels (the counter
+    darboux.pixels, not occlusion.pixels); under marks, on a CPU ring, the
+    frame gives the Darboux pieces' stage darboux_setup, the shade's stage
+    darboux and the same pixels."""
+    s = darboux_scene()
+    covered = int((s.render()["z"] > F32_MIN).sum())
+    assert covered > 0
+    timing.enable()
+    s.render()
+    counters = timing.snapshot()["counters"]
+    assert counters["darboux.pixels"] == covered and counters["shade.frames"] == 1
+    assert "occlusion.pixels" not in counters
+    ring = timing._Ring(torch.device("cpu"), frames=4)
+    with timing.marking(ring) as marks:
+        s.render()  # eagerly every mark writes its stamp now, as a replay would
+    ring.issue(marks, lambda: None)
+    (fr,), _ = ring.drain()
+    assert fr["labels"] == DARBOUX_MARKS
+    assert fr["stages"]["darboux_setup"] > 0 and fr["stages"]["darboux"] > 0
+    assert fr["pixels"] == covered and fr["pixels_counter"] == "darboux.pixels" and fr["chunks"] == 1
+
+
+def test_darboux_skipped_body_reads_absent(tracer, monkeypatch):
+    """A darboux frame of three chunk bodies (strip_batch 8) whose covered
+    strips end inside the first: the second and third bodies are skipped
+    as a replay skips them (their mark nodes do not run), so their darboux
+    marks read absent and the stage darboux is the first body's alone."""
+    s = darboux_scene(radius=0.25, strip_batch=8)
+    covered = int((s.render()["z"] > F32_MIN).sum())
+    ring = timing._Ring(torch.device("cpu"), frames=4)
+    skipped, real_mark = [False], ring.mark
+    monkeypatch.setattr(ring, "mark", lambda *a, **k: None if skipped[0] else real_mark(*a, **k))
+
+    def device_if(pred, body):
+        skipped[0] = not bool(pred)
+        try:
+            body()
+        finally:
+            skipped[0] = False
+
+    monkeypatch.setattr(graphs, "device_if", device_if)
+    timing.enable()
+    with timing.marking(ring) as marks:
+        s.render()
+    ring.issue(marks, lambda: None)
+    (fr,), _ = ring.drain()
+    bodies = DARBOUX_MARKS[5:7] * 3
+    assert fr["labels"] == DARBOUX_MARKS[:5] + bodies + ["shade"]
+    stamps = fr["stamps_ns"]
+    assert stamps[7:11] == [None] * 4 and None not in stamps[:7] + stamps[11:]
+    assert fr["stages"]["darboux"] == pytest.approx((stamps[6] - stamps[5]) / 1e6)
+    assert fr["stages"]["shade"] == pytest.approx((stamps[5] - stamps[4] + stamps[11] - stamps[6]) / 1e6)
+    assert fr["chunks"] == 1 and fr["pixels"] == covered
+
+
+def test_drained_pixels_go_to_their_shade_counter(tracer, monkeypatch):
+    """Frames drained from a device's ring: an occlusion frame's pixels go
+    to occlusion.pixels and a darboux frame's to darboux.pixels, each with
+    its own stages; a shadow frame keeps FRAME_MARKS and stamps no pixels."""
+    ring = timing._Ring(torch.device("cpu"), frames=8)
+    monkeypatch.setattr(timing, "_RINGS", {0: ring})
+    timing.enable()
+    covered = {}
+    for name, make in (("occlusion", occlusion_scene), ("darboux", darboux_scene), ("shadow", scene)):
+        s = make()
+        with timing.marking(ring) as marks:
+            covered[name] = int((s.render()["z"] > F32_MIN).sum())
+        ring.issue(marks, lambda: None)
+    snap = timing.snapshot()
+    occ, darb, shadow = snap["frames"]
+    assert "probe" in occ["stages"] and occ["pixels"] == covered["occlusion"]
+    assert "darboux" in darb["stages"] and darb["pixels"] == covered["darboux"]
+    assert shadow["labels"] == FRAME_MARKS[1:] and shadow["pixels"] is None
+    assert snap["counters"]["occlusion.pixels"] == covered["occlusion"]
+    assert snap["counters"]["darboux.pixels"] == covered["darboux"]
+
+
 
 @pytest.mark.parametrize("make", [scene, occlusion_scene], ids=["shadow", "occlusion"])
 def test_burst_fills_host_frames_cpu(tracer, make):
@@ -573,3 +666,41 @@ def test_card_occlusion_burst_probe_and_pixels(card, tracer):
         assert fr["labels"][-2:] == ["shade", "shade"]
     for fr in frames[8:]:
         assert fr["labels"] == FRAME_MARKS + ["shade"] and fr["pixels"] is None and fr["covered"] > 0
+
+
+@pytest.mark.card
+def test_card_darboux_burst_stages_and_pixels(card, tracer):
+    """A traced 8-frame darboux burst: every frame has the Darboux pieces'
+    stage and the shade's, and its covered pixels, equal to the covered
+    pixels of the same frame rendered eagerly with the tracer off; the
+    counter darboux.pixels is their sum with the first frame's again (the
+    capture's eager warm-up renders the first pose, and an eager frame
+    counts) and occlusion.pixels stays empty."""
+    from tiny_renderer_tpu_torch.app import flagship_model
+
+    cams = np.linspace(0.0, 1.0, 8, dtype=np.float32)
+    ligs = np.linspace(0.5, -0.5, 8, dtype=np.float32)
+    s = Scene(flagship_model(), "darboux", RenderConfig(), device=card)
+    want = []
+    for c, l in zip(cams, ligs):
+        a = torch.tensor([c, l], device=card)
+        zero = torch.zeros((), device=card)
+        look_from = torch.stack([torch.sin(a[0]), zero, torch.cos(a[0])])
+        light = torch.stack([torch.sin(a[1]), zero, torch.cos(a[1])])
+        out = tframe.render_frame(s._geom, s._textures, light, look_from, torch.zeros(3, device=card),
+                                  torch.tensor([0.0, 1.0, 0.0], device=card), pipeline="darboux",
+                                  config=s.config)
+        want.append(int((out["z"] > F32_MIN).sum()))
+    timing.enable()
+    s.render_sequence(cams, ligs)
+    snap = timing.snapshot()
+    timing.disable()
+    frames = snap["frames"]
+    assert len(frames) == 8
+    for fr, n in zip(frames, want):
+        assert fr["labels"][:6] == ["start", "vertex", "darboux_setup", "vertex", "binning", "raster"]
+        assert fr["labels"][-2:] == ["shade", "shade"]
+        assert fr["stages"]["darboux_setup"] > 0 and fr["stages"]["darboux"] > 0
+        assert fr["pixels"] == n and fr["chunks"] >= 1
+    assert snap["counters"]["darboux.pixels"] == sum(want) + want[0]
+    assert "occlusion.pixels" not in snap["counters"]

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import timing
 from . import mathlib as ml
 from . import vertex_cuda
 
@@ -86,7 +87,10 @@ def triangle_setup(geom, uniforms, config, *, matrix_key="vpmv", cull=True, need
             out[key] = a
 
     if "darboux" in needs:
-        # Per-triangle Darboux basis pieces (shader.rs:561-643).
+        # Per-triangle Darboux basis pieces (shader.rs:561-643).  Traced,
+        # they are the stage `darboux_setup` of the frame; the rest of the
+        # layer stays the stage `vertex`.
+        timing.mark("vertex")
         uv = out["uv"]
         t_pos = ml.mat4_transform_point(uniforms["m"], pos)
         out["t_norm"] = ml.normalize3(
@@ -100,6 +104,7 @@ def triangle_setup(geom, uniforms, config, *, matrix_key="vpmv", cull=True, need
         out["dv"] = torch.stack(
             [uv[:, 1, 1] - uv[:, 0, 1], uv[:, 2, 1] - uv[:, 0, 1]], dim=-1
         )
+        timing.mark("darboux_setup")
     return out
 
 

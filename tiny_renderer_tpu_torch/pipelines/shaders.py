@@ -429,7 +429,12 @@ def shade_specular(frag, uniforms, textures, config):
 
 
 def shade_darboux(frag, uniforms, textures, config):
-    """Tangent-space (Darboux) normal mapping (shader.rs:597-654)."""
+    """Tangent-space (Darboux) normal mapping (shader.rs:597-654).  Traced,
+    it is the stage `darboux` of its frame (the stage up to it keeps
+    `shade`) and the frame counts its covered pixels (timing.frame_pixels,
+    counter darboux.pixels)."""
+    timing.mark("shade")
+    timing.shade_pixels("darboux.pixels")
     s = sample_frag(textures, frag, ("texture", "normal_map_tangent"))
     color, tn_sample = s["texture"], s["normal_map_tangent"]
 
@@ -449,7 +454,9 @@ def shade_darboux(frag, uniforms, textures, config):
         col_x * tn_sample[..., 0:1] + col_y * tn_sample[..., 1:2] + col_z * tn_sample[..., 2:3]
     )
     diff = ml.dot3(uniforms["t_light_direction"], t_fragment_normal)
-    return ml.color_blend(color, _color(BLACK, color.device), diff)
+    out = ml.color_blend(color, _color(BLACK, color.device), diff)
+    timing.mark("darboux")
+    return out
 
 
 def shade_shadow(frag, uniforms, textures, config):
@@ -582,9 +589,9 @@ def occlusion_coefficient(xf, yf, zfrag, shadow_buffer, uniforms, config):
     config.occlusion_dedup: the values are the same), on CPU tensors
     occlusion_reference.  Traced, the probe is the stage `probe` of its
     frame (the stage up to it keeps `shade`) and the frame counts its
-    covered pixels (timing.frame_pixels)."""
+    covered pixels (timing.frame_pixels, counter occlusion.pixels)."""
     timing.mark("shade")
-    timing.probe_pixels()
+    timing.shade_pixels("occlusion.pixels")
     if xf.is_cuda:
         occ = occlusion_cuda.coefficient(
             xf.contiguous(), yf.contiguous(), zfrag.contiguous(), shadow_buffer.contiguous(), uniforms,

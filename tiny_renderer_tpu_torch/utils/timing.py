@@ -24,16 +24,17 @@ The tracer, off by default (``enable()``, ``disable()``, ``snapshot()``):
   the body of an IF node that did not run) reads absent.  Elsewhere (eager
   frames, the CPU, any other graph) mark does nothing.  ``shade_count``
   gives the strip shade's covered count to the frame's next mark, or,
-  eagerly, reads it into the counters; ``probe_pixels`` and
+  eagerly, reads it into the counters; ``shade_pixels`` and
   ``frame_pixels`` do the same with the covered pixels of a frame whose
-  shade ran the occlusion probe.  The ring is drained (``drain()``) where
-  the program already waits for the device, once it holds half a ring of
-  frames, and at each snapshot; each frame yields its stages' device ms
-  (the time from the previous mark that ran to each mark that ran, summed
-  by the mark's label), its device span (first mark to last), its covered
-  count and chunk bodies, its covered pixels, and the call id of the call
-  that issued it.  Frames overwritten before a drain are counted as
-  dropped.
+  shade asks for them (the occlusion probe: counter ``occlusion.pixels``;
+  the darboux shade: ``darboux.pixels``).  The ring is drained
+  (``drain()``) where the program already waits for the device, once it
+  holds half a ring of frames, and at each snapshot; each frame yields its
+  stages' device ms (the time from the previous mark that ran to each mark
+  that ran, summed by the mark's label), its device span (first mark to
+  last), its covered count and chunk bodies, its covered pixels, and the
+  call id of the call that issued it.  Frames overwritten before a drain
+  are counted as dropped.
 
 Off, a span site costs two module-level reads (the tracer's flag and
 torch.autograd.profiler's), a mark site one; a graph captured with the
@@ -329,9 +330,9 @@ class _Ring:
 def _frame_record(row, call, marks, device):
     """One drained frame: its number in the ring (the device's frame
     counter), its stages' device ms, span, covered count, chunk bodies run,
-    covered pixels, stamps (None for a mark that did not run) and labels,
-    and the call id that issued it.  A stage is charged from the previous
-    stamp present to each stamp present."""
+    covered pixels and the counter they go to, stamps (None for a mark that
+    did not run) and labels, and the call id that issued it.  A stage is
+    charged from the previous stamp present to each stamp present."""
     labels = marks.labels
     stamps = [t if t >= 0 else None for t in row[:len(labels)]]
     stages, present = {}, []
@@ -346,18 +347,19 @@ def _frame_record(row, call, marks, device):
               else sum(s < covered for s in marks.chunk_starts))
     return {"frame": row[-2], "call": call, "device": str(device), "labels": list(labels), "stamps_ns": stamps,
             "stages": stages, "span_ms": (present[-1] - present[0]) / 1e6, "covered": covered, "chunks": chunks,
-            "pixels": None if row[-3] < 0 else row[-3]}
+            "pixels": None if row[-3] < 0 else row[-3], "pixels_counter": marks.pixels_counter}
 
 
 class FrameMarks:
     """The marks one frame graph's capture recorded into a ring: their
     labels, the shade's covered count and its chunks' first slots
     (shade_count) and the covered pixels (frame_pixels), each waiting for
-    the next mark, and the tensors the nodes read."""
+    the next mark, the counter the pixels go to, and the tensors the nodes
+    read."""
 
     def __init__(self, ring):
         self.ring, self.labels, self.hold = ring, [], []
-        self.covered = self.chunk_starts = self.pixels = None
+        self.covered = self.chunk_starts = self.pixels = self.pixels_counter = None
 
     def add(self, label):
         slot = len(self.labels)
@@ -436,29 +438,33 @@ def shade_count(covered, chunk_starts):
         count("shade.frames")
 
 
-def probe_pixels():
-    """Called by the occlusion probe as it is issued: with the tracer on,
-    the frame's frame_pixels then counts its covered pixels."""
+def shade_pixels(counter):
+    """Called by a shade as it is issued: with the tracer on, the frame's
+    frame_pixels then counts its covered pixels under the counter
+    `counter` ("occlusion.pixels" for the occlusion probe,
+    "darboux.pixels" for the darboux shade)."""
     if _ON:
-        _LOCAL.probe = True
+        _LOCAL.pixels_counter = counter
 
 
 def frame_pixels(idx):
-    """The covered pixels (idx >= 0) of a frame whose shade ran the
-    occlusion probe since the last call (probe_pixels), as a 0-d int32
-    count: under a marked capture the frame's next mark records it on the
-    device (the frame's "pixels"); otherwise, with the tracer on and no
-    capture under way, it is read into the counter occlusion.pixels.
-    Nothing for any other frame."""
-    if not getattr(_LOCAL, "probe", False):
+    """The covered pixels (idx >= 0) of a frame whose shade asked for them
+    since the last call (shade_pixels), as a 0-d int32 count: under a
+    marked capture the frame's next mark records it on the device (the
+    frame's "pixels", drained into the shade's counter); otherwise, with
+    the tracer on and no capture under way, it is read into the shade's
+    counter.  Nothing for any other frame."""
+    counter = getattr(_LOCAL, "pixels_counter", None)
+    if counter is None:
         return
-    _LOCAL.probe = False
+    _LOCAL.pixels_counter = None
     marks = _marks()
     if marks is not None:
         marks.pixels = (idx >= 0).sum(dtype=torch.int32)
+        marks.pixels_counter = counter
         marks.hold.append(marks.pixels)
     elif _ON and not (idx.is_cuda and torch.cuda.is_current_stream_capturing()):
-        count("occlusion.pixels", int((idx >= 0).sum()))
+        count(counter, int((idx >= 0).sum()))
 
 
 def drain(everything=False):
@@ -483,7 +489,7 @@ def drain(everything=False):
                         _counters["shade.chunks"] += fr["chunks"]
                         _counters["shade.frames"] += 1
                     if fr["pixels"] is not None:
-                        _counters["occlusion.pixels"] += fr["pixels"]
+                        _counters[fr["pixels_counter"]] += fr["pixels"]
                     if len(_frames) < MAX_FRAMES:
                         _frames.append(fr)
                     else:
