@@ -31,6 +31,20 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              recorded a replayed frame (one a chunk body in the graph) and
              none for shadow; the kernel's device ms alone and in a graph
              beside its bound (occlusion_phase, runnable alone).
+2d. darboux — csrc/darboux.cu (the darboux strip chunk body, one thread a
+             fragment): frames byte-equal to the torch chunk body's on the
+             card at the 800x800 cell's orbit poses under tex_tile 16 and 0,
+             strip_pack_words on and off, the int16 idx plane and bodies of
+             fill slots; row slabs at a first row > 0; degenerate normals
+             (NaN, singular bases); seeded synthetic chunks (NaN/inf setup
+             columns, uncovered lanes, fill slots); Scene.render and a
+             60-frame render_sequence byte-equal to the torch body's eager
+             frames, launches recorded a replayed frame (one a chunk body,
+             none under compact_shade=False); in the profiler one darboux
+             kernel ran a replayed frame, kernels a frame and
+             darboux_launches; the kernel's device ms and the strip shade
+             replayed with it and with the torch body, beside its bound
+             (darboux_phase, runnable alone).
 3. kernel  — every kernel mode against its plain torch twin on seeded random
              soups, the depth tie case, the flagship scene's two passes and
              five adversarial screen-space scenes (large and huge triangles,
@@ -1108,6 +1122,281 @@ def occlusion_phase(dev, smi):
           f"{ms_plain:.4f} ms; bound {bound_ms * 1e3:.3f} us ({result['bytes']} B at 3.35 TB/s, {pixels} covered "
           f"pixels), {bound_ms / alone:.2%} of it alone, {bound_ms / result['in_burst_ms']:.2%} in the burst  [{smi}]")
     print(json.dumps({"occlusion": result}), flush=True)
+    return result
+
+
+DARBOUX_CELL = "diablo-darboux.orbit-burst"
+DARBOUX_SEED = 2_147_524_024
+DARBOUX_POSES = 4  # orbit poses of the 800x800 frame a config
+# The eager frames' configs: the layouts the body reads and writes (the
+# row-major packed plane, u8 triples, the int16 idx plane) and eager chunk
+# bodies made mostly of fill slots (strip_batch 8: 3 bodies, run in full).
+DARBOUX_CONFIGS = {"default": {}, "tex_tile 0": dict(auto_tune=False), "strip_pack_words=False":
+                   dict(strip_pack_words=False), "idx_int16": dict(idx_int16=True), "strip_batch=8": dict(strip_batch=8)}
+DARBOUX_SLABS = ((160, 320), (96, 704))  # (rows, first row) of row slabs of the 800x800 frame
+# Synthetic chunks: seeded setup columns over T triangles, a share of them
+# set to DARBOUX_SPECIAL values, singular bases, uncovered lanes.
+DARBOUX_TRIANGLES = 5096
+DARBOUX_SPECIAL = (math.nan, math.inf, -math.inf, 0.0, -0.0, 1e30, -1e30, 1e-30, 0.5, 1.0, -1.0)
+DARBOUX_POSES_REPLAYED = 3  # Scene.render poses
+DARBOUX_TIMED = 200
+DARBOUX_KERNEL = re.compile(r"darboux_kernel")
+
+
+def plain_darboux():
+    """The torch chunk body on CUDA tensors too, inside the returned
+    context: the built-in spec without its fused body.  For eager frames,
+    since a graph captured inside it would be cached with the torch body."""
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+
+    spec = tframe.PIPELINES["darboux"]
+    return mock.patch.dict(tframe.PIPELINES, {"darboux": dataclasses.replace(spec, fused_body=None)})
+
+
+def darboux_setup(rng, n, dev):
+    """Seeded setup columns of n triangles with NaN, +-inf, zeros and huge
+    values among them, zero-area triangles, bases whose rows coincide or
+    whose normal lies along a row (singular), as triangle_setup's dict."""
+    def floats(*shape, scale=1.0):
+        a = rng.normal(0.0, scale, shape).astype(np.float32)
+        at = rng.random(shape) < 0.04
+        a[at] = rng.choice(np.float32(DARBOUX_SPECIAL), size=int(at.sum()))
+        return a
+
+    out = {k: rng.integers(-3000, 3000, n).astype(np.int32) for k in ("a1", "b1", "c1", "a2", "b2", "c2")}
+    out["cz"] = rng.integers(-40_000, 40_000, n).astype(np.int32)
+    out["cz"][::17] = 0
+    out["uv"] = np.abs(floats(n, 3, 2, scale=0.7))
+    out["t_norm"], out["row0n"], out["row1n"] = floats(n, 3, 3), floats(n, 3), floats(n, 3)
+    out["row1n"][::5] = out["row0n"][::5]
+    out["t_norm"][1::7] = out["row0n"][1::7, None, :]
+    out["du"], out["dv"] = floats(n, 2, scale=0.02), floats(n, 2, scale=0.02)
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in out.items()}
+
+
+def darboux_phase(dev, smi):
+    """Phase 2d: csrc/darboux.cu on the card.  Builds it (ptxas registers
+    and spills printed).  The kernel's frames byte-equal to the torch chunk
+    body's (plain_darboux) on the same CUDA tensors, eagerly: the cell's
+    800x800 frame at DARBOUX_POSES orbit poses under each of
+    DARBOUX_CONFIGS (tex_tile 16 and 0, strip_pack_words on and off, the
+    int16 idx plane, bodies of fill slots); row slabs at a first row > 0
+    (parallel.sharding's y_offset); the frame with degenerate normals (zero,
+    or along an edge: NaN and singular bases); and seeded synthetic chunks
+    through _shade_strips (NaN/inf setup columns, zero-area triangles,
+    singular bases, uncovered lanes, fill slots) at tex_tile 16 and 0, both
+    writebacks, y_offset 0 and 96.  Then Scene.render (replayed) byte-equal
+    to the torch body's eager frame at DARBOUX_POSES_REPLAYED poses and a
+    60-frame render_sequence byte-equal to the torch body's eager burst,
+    with the launches recorded a replayed frame (one a chunk body in the
+    graph) and none under compact_shade=False (the full-screen torch
+    shade); torch.profiler over a replayed render_sequence: one darboux
+    kernel ran a frame, kernels a frame, and the snapshot's
+    darboux_launches.  The kernel's device ms on the frame's first chunk
+    (the launch queue held full), and the strip shade alone replayed with
+    the kernel and with the torch body, beside the bound
+    (benchmark/roofline_darboux.py at the frame's covered pixels).  Returns
+    the numbers for the kernel table."""
+    from benchmark import harness, roofline_darboux, tracing
+    from benchmark.orbit import Orbit
+    from tiny_renderer_tpu_torch import Scene
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.ops import darboux_cuda, raster_cuda
+    from tiny_renderer_tpu_torch.ops import mathlib as ml
+    from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+    from tiny_renderer_tpu_torch.pipelines.graphs import CapturedGraph
+    from tiny_renderer_tpu_torch.utils import timing
+
+    lib, seconds, log = raster_cuda.build(force=True, source=darboux_cuda.SOURCE)
+    phase("darboux", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s")
+    registers = [line.strip() for line in log.splitlines()
+                 if "Compiling entry" in line or "registers" in line or "spill" in line]
+    for line in registers:
+        phase("darboux", line)
+
+    cell = harness.find_cell(DARBOUX_CELL)
+    sc = harness.build_scene(cell.config, DARBOUX_SEED, dev)[0]
+    config = sc.config.resolve("darboux")
+    spec = tframe.PIPELINES["darboux"]
+    rng = np.random.default_rng(DARBOUX_SEED)
+    orbit = Orbit(DARBOUX_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
+    origin, up_y = [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]
+
+    def view(light, look_from):
+        return [to_tensor(np.float32(v), dev) for v in (light, look_from, origin, up_y)]
+
+    def orbit_views(first, count):
+        return [view([math.sin(li), 0.0, math.cos(li)], [math.sin(c), 0.0, math.cos(c)])
+                for c, li in zip(*orbit.angles(first, count))]
+
+    def both(label, fn):
+        """fn() with the kernel and with the torch body, byte for byte;
+        returns the kernel's output and its launches."""
+        darboux_cuda.reset_launches()
+        got = fn()
+        launches = darboux_cuda.LAUNCHES["body"]
+        with plain_darboux():
+            want = fn()
+        torch.cuda.synchronize()
+        check(darboux_cuda.LAUNCHES["body"] == launches and launches > 0,
+              f"{label}: {launches} kernel launches, {darboux_cuda.LAUNCHES['body'] - launches} under the torch body")
+        bad = (got != want).reshape(-1, got.shape[-1]).any(-1)
+        if bool(bad.any()):
+            at = int(bad.nonzero()[0, 0])
+            phase("darboux", f"{label}: {int(bad.sum())} of {bad.numel()} pixels differ; first at {at}: "
+                  f"{got.reshape(-1, got.shape[-1])[at].tolist()} against {want.reshape(-1, want.shape[-1])[at].tolist()}")
+        check(not bool(bad.any()), f"{label}: the kernel differs from the torch body")
+        return got, launches
+
+    # The 800x800 frame at orbit poses under each config.
+    w, h = config.width, config.height
+    cases, black = 0, {}
+    for i, (cname, knobs) in enumerate(DARBOUX_CONFIGS.items()):
+        rc = dataclasses.replace(sc.config, **knobs).resolve("darboux")
+        for v in orbit_views(50 * i, DARBOUX_POSES):
+            both(f"{cname} frame", lambda: tframe.render_frame(sc._geom, sc._textures, *v, pipeline="darboux",
+                                                               config=rc, needs_z=False)["frame"])
+            cases += 1
+    # Row slabs.
+    v = orbit_views(7, 1)[0]
+    _, u = tframe._uniforms(spec, config, *v)
+    setup = triangle_setup(sc._geom, u, config, needs=spec.needs)
+    for rows, y0 in DARBOUX_SLABS:
+        both(f"the slab of rows {y0}..{y0 + rows}", lambda: tframe._camera_pass_and_shade(
+            setup, u, "darboux", sc._textures, config, "kernel", None, False, rows=rows, y0=y0)[0])
+        cases += 1
+    # Degenerate normals: zero on a third of the triangles (NaN), along the
+    # first edge on another third (a singular basis).
+    geom = dict(sc._geom)
+    normal, pos = geom["normal_tri"].clone(), geom["pos_tri"]
+    third = torch.arange(normal.shape[0], device=dev) % 3
+    normal[third == 0] = 0.0
+    normal[third == 1] = (pos[:, 1] - pos[:, 0])[third == 1][:, None, :]
+    geom["normal_tri"] = normal
+    for v in orbit_views(300, DARBOUX_POSES):
+        out, _ = both("degenerate normals", lambda: tframe.render_frame(
+            geom, sc._textures, *v, pipeline="darboux", config=config)["frame"])
+        covered = tframe.render_frame(geom, sc._textures, *v, pipeline="darboux", config=config)["z"] > ml.F32_MIN
+        black["degenerate"] = black.get("degenerate", 0) + int((covered & (out == 0).all(-1)).sum())
+        cases += 1
+    # Synthetic chunks through _shade_strips.
+    syn = darboux_setup(rng, DARBOUX_TRIANGLES, dev)
+    idx = torch.from_numpy(rng.integers(-1, DARBOUX_TRIANGLES, (h, w)).astype(np.int32)).to(dev)
+    idx[torch.from_numpy(rng.random((h, w)) < 0.3).to(dev)] = -1
+    light = {"t_light_direction": u["t_light_direction"]}
+    for tile_knobs in ({}, dict(auto_tune=False)):
+        for pack in (True, False):
+            rc = dataclasses.replace(sc.config, strip_pack_words=pack, **tile_knobs).resolve("darboux")
+            textures = tframe._with_packed_plane(sc._textures, "darboux", rc)
+            for y0 in (0, 96):
+                out, n = both(f"synthetic chunks, tex_tile {rc.tex_tile}, pack {pack}, y_offset {y0}",
+                              lambda: tframe._shade_strips(syn, idx, "darboux", light, textures, rc, None,
+                                                           y_offset=y0))
+                black["synthetic"] = black.get("synthetic", 0) + int(((idx >= 0) & (out == 0).all(-1)).sum())
+                cases += 1
+    phase("darboux", f"{cases} cases byte-equal to the torch body on the card: the {w}x{h} frame at "
+          f"{DARBOUX_POSES} poses under {list(DARBOUX_CONFIGS)}, row slabs {DARBOUX_SLABS}, degenerate normals, "
+          f"synthetic chunks (NaN/inf columns, singular bases, uncovered lanes, fill slots; tex_tile 16 and 0, "
+          f"both writebacks, y_offset 0 and 96); covered pixels black (NaN or a dark blend) {black}")
+
+    # Replayed frames and bursts against the torch body's eager ones.
+    n_seq = cell.traffic["frames_per_call"]
+    cams, ligs = orbit.angles(200, n_seq)
+    n_strips = -(-w * h // config.strip_len)
+    slots = -(-n_strips // config.strip_batch) * config.strip_batch
+    per_frame = len(tframe.shade_chunks(slots, config.strip_batch))
+    for cname, knobs, bodies in (("default", {}, per_frame), ("compact_shade=False", dict(compact_shade=False), 0)):
+        s = Scene(sc.model, "darboux", dataclasses.replace(sc.config, **knobs), device=dev)
+        rc = s.config.resolve("darboux")
+        for v, (c, li) in zip(orbit_views(100, DARBOUX_POSES_REPLAYED),
+                              zip(*orbit.angles(100, DARBOUX_POSES_REPLAYED))):
+            s.set_light_direction([math.sin(li), 0.0, math.cos(li)])
+            s.set_camera([math.sin(c), 0.0, math.cos(c)], origin, up_y)
+            s.render()  # the first call captures
+            darboux_cuda.reset_launches()
+            got = s.render()
+            check(darboux_cuda.LAUNCHES == {"body": bodies},
+                  f"{cname}: darboux launches recorded a replayed frame {darboux_cuda.LAUNCHES}, not {bodies}")
+            with plain_darboux():
+                want = tframe.render_frame(s._geom, s._textures, *v, pipeline="darboux", config=rc)
+            for k in ("frame", "z", "shadow", "overflow"):
+                check(torch.equal(got[k], want[k]), f"{cname}: replayed {k} differs from the torch body's frame")
+        s.render_sequence(cams, ligs)  # captures the burst frame
+        darboux_cuda.reset_launches()
+        seq = s.render_sequence(cams, ligs)
+        check(darboux_cuda.LAUNCHES == {"body": bodies * n_seq},
+              f"{cname}: darboux launches recorded in a {n_seq}-frame render_sequence {darboux_cuda.LAUNCHES}")
+        with plain_darboux():
+            want = tframe._render_burst_eager(s._geom, s._textures, to_tensor(cams, dev), to_tensor(ligs, dev),
+                                              pipeline="darboux", config=rc, keep_frames=True)
+        check(np.array_equal(seq, want["frames"].cpu().numpy()[:, ::-1]),
+              f"{cname}: the {n_seq}-frame render_sequence differs from the torch body's eager burst")
+        check(not bool(want["overflow"].any()), f"{cname}: the burst overflowed")
+        if cname == "default":
+            darboux_cuda.reset_launches()
+            trace = tracing.summarize(tracing.profile(lambda: s.render_sequence(cams, ligs), dev)[0], frames=n_seq)
+            launches = timing.snapshot()["darboux_launches"]
+            ran_ms = [t * 1e3 for name, t in trace.kernels if DARBOUX_KERNEL.search(name)]
+            kernels_a_frame = len(trace.kernels) / n_seq
+            check(len(ran_ms) == n_seq, f"{len(ran_ms)} darboux kernels ran in a profiled replayed {n_seq}-frame "
+                  f"render_sequence, not one a frame")
+            check(launches == {"body": per_frame * n_seq}, f"darboux_launches {launches}")
+    phase("darboux", f"Scene.render at {DARBOUX_POSES_REPLAYED} poses and a {n_seq}-frame render_sequence "
+          f"byte-equal to the torch body's eager frames (default and compact_shade=False); launches recorded a "
+          f"replayed frame {per_frame} (one a chunk body in the graph, run or skipped), 0 under "
+          f"compact_shade=False; profiled replayed burst: {kernels_a_frame:.2f} kernels a frame, "
+          f"{len(ran_ms) / n_seq:.0f} darboux kernel a frame ran, {float(np.mean(ran_ms)):.4f} ms each; "
+          f"darboux_launches {launches}")
+
+    # The kernel's time: alone on the frame's first chunk with the launch
+    # queue held full, and the strip shade replayed with the kernel and with
+    # the torch body.
+    calls = []
+    launch = darboux_cuda.chunk_body
+
+    def recorded(*a, **k):
+        calls.append((a, k))
+        launch(*a, **k)
+
+    v = orbit_views(0, 1)[0]
+    with mock.patch.object(darboux_cuda, "chunk_body", recorded):
+        tframe.render_frame(sc._geom, sc._textures, *v, pipeline="darboux", config=config)
+    (a, k), *_ = calls
+    setup1, strips = a[0], a[1]
+    frame_idx = strips.reshape(-1)[:w * h].reshape(h, w)
+    pixels = int((frame_idx >= 0).sum())
+    alone = time_launches(lambda: darboux_cuda.chunk_body(*a, **k), DARBOUX_TIMED, hold=True)
+    textures = tframe._with_packed_plane(sc._textures, "darboux", config)
+    light = {"t_light_direction": a[6]}
+
+    def shade(idx):
+        return tframe._shade_strips(setup1, idx, "darboux", light, textures, config, None)
+
+    g_kernel = CapturedGraph(shade, [frame_idx], "the darboux strip shade")
+    with plain_darboux():
+        g_plain = CapturedGraph(shade, [frame_idx], "the torch darboux strip shade")
+    check(g_kernel.darboux_launches == {"body": per_frame} and not any(g_plain.darboux_launches.values()),
+          f"darboux launches recorded: {g_kernel.darboux_launches}, torch body {g_plain.darboux_launches}")
+    check(torch.equal(g_kernel(frame_idx).clone(), g_plain(frame_idx)), "the replayed strip shades differ")
+    ms = {}
+    for label, g in (("plain", g_plain), ("kernel", g_kernel), ("kernel2", g_kernel), ("plain2", g_plain)):
+        ms[label] = time_launches(lambda g=g: g.graph.replay(), DARBOUX_TIMED, hold=True)
+    ms_kernel, ms_plain = min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"])
+    bound_ms = roofline_darboux.least_seconds(w, h, pixels) * 1e3
+    result = {
+        "device_ms": alone, "shade_graph_ms": ms_kernel, "plain_shade_graph_ms": ms_plain,
+        "in_burst_ms": float(np.mean(ran_ms)), "slots": a[2].numel(), "pixels": pixels, "bound_ms": bound_ms,
+        "bytes": roofline_darboux.darboux_bytes(pixels), "flops": roofline_darboux.darboux_flops(pixels),
+        "kernels_per_frame": kernels_a_frame, "launches_recorded_a_frame": per_frame, "cases": cases,
+        "registers": registers, "build_s": seconds,
+    }
+    phase("darboux", f"the kernel on the frame's first chunk ({a[2].numel()} slots of {config.strip_len}): "
+          f"{alone:.4f} ms a launch (queue held full), {result['in_burst_ms']:.4f} ms in the burst; the strip "
+          f"shade replayed {ms_kernel:.4f} ms against the torch body's {ms_plain:.4f} ms; bound "
+          f"{bound_ms * 1e3:.3f} us ({result['bytes']} B at 3.35 TB/s, {pixels} covered pixels), "
+          f"{bound_ms / alone:.3%} of it alone, {bound_ms / result['in_burst_ms']:.3%} in the burst  [{smi}]")
+    print(json.dumps({"darboux": result}), flush=True)
     return result
 
 
@@ -2929,6 +3218,10 @@ def main() -> int:
     # -- 2c. occlusion --------------------------------------------------------
     occlusion_phase(dev, smi)
     lap("occlusion")
+
+    # -- 2d. darboux ----------------------------------------------------------
+    darboux_phase(dev, smi)
+    lap("darboux")
 
     cfg = RenderConfig().resolve("shadow")  # 800x800, the default config
     grid = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)

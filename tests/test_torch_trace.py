@@ -82,7 +82,7 @@ class StandIn(graphs.CapturedGraph):
 
     def __init__(self, fn, inputs, name, hold=(), device=None, marked=False):
         self.fn, self.lock, self.launches, self.vertex_launches = fn, threading.Lock(), {}, {}
-        self.occlusion_launches = {}
+        self.occlusion_launches, self.darboux_launches = {}, {}
         self.inputs = [x.clone() for x in inputs]
         self.outputs = fn(*self.inputs)
 

@@ -65,6 +65,10 @@ class PipelineSpec:
     needs: tuple  # vertex-stage varyings for the shading pass
     shade: object  # shading function for the final pass
     two_pass: bool = False  # shadow-buffer depth pre-pass (shader.rs:668-963)
+    # A hand-written kernel for a whole strip chunk body, or None:
+    # fused_body(textures, device) returns the body where the kernel
+    # applies, else None, and _shade_strips runs the torch body.
+    fused_body: object = None
 
 
 PIPELINES = {
@@ -72,7 +76,8 @@ PIPELINES = {
     "phong": PipelineSpec("phong", ("vertex_intensity",), shaders.shade_phong),
     "normal_map": PipelineSpec("normal_map", (), shaders.shade_normal_map),
     "specular": PipelineSpec("specular", (), shaders.shade_specular),
-    "darboux": PipelineSpec("darboux", ("darboux",), shaders.shade_darboux),
+    "darboux": PipelineSpec("darboux", ("darboux",), shaders.shade_darboux,
+                            fused_body=shaders.darboux_fused_body),
     "shadow": PipelineSpec(
         "shadow", ("vertex_intensity",), shaders.shade_shadow, two_pass=True
     ),
@@ -561,8 +566,10 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     varying planes, whose strips replace the attribute gather and
     compute_varyings (the kernel's interpolation is expression-identical).
     The writeback is one packed RGB word per pixel (config.strip_pack_words)
-    or the u8 triples.  Returns the (H, W, 3) u8 frame, uncovered pixels
-    black.
+    or the u8 triples.  Where the pipeline's spec has a fused_body that
+    applies (darboux on CUDA tensors with its packed plane), each chunk
+    body is that one kernel launch, equal to the torch body.  Returns the
+    (H, W, 3) u8 frame, uncovered pixels black.
     """
     spec = PIPELINES[pipeline]
     H, W = idx.shape
@@ -597,7 +604,12 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     else:
         acc = torch.zeros((n_strips + 1, SL, 3), dtype=torch.uint8, device=dev)
 
+    kernel_body = spec.fused_body(textures, dev) if spec.fused_body is not None else None
+
     def chunk(cids):
+        if kernel_body is not None:
+            kernel_body(setup, strips, cids, acc, uniforms, width=W, pixels=HW, y_offset=y_offset)
+            return
         safe = cids.clamp(max=n_strips - 1)
         sidx = strips[safe]  # (chunk, SL) winning-triangle ids
         base = (safe[:, None] * SL + lane[None, :]).clamp(max=HW - 1)

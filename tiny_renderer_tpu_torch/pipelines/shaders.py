@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import mathlib as ml
-from ..ops import occlusion_cuda
+from ..ops import darboux_cuda, occlusion_cuda
 from ..utils import timing
 from . import graphs
 
@@ -457,6 +457,30 @@ def shade_darboux(frag, uniforms, textures, config):
     out = ml.color_blend(color, _color(BLACK, color.device), diff)
     timing.mark("darboux")
     return out
+
+
+def darboux_fused_body(textures, device):
+    """The darboux pipeline's strip chunk body as one launch of the kernel
+    of ops/darboux_cuda.py, where it applies: on a CUDA device, with the
+    packed plane of the pipeline's maps (maps of mixed dimensions have
+    none).  Returns body(setup, strips, cids, acc, uniforms, *, width,
+    pixels, y_offset), which does what frame._shade_strips' torch body does
+    for the slots `cids` (darboux_cuda.chunk_body), or None where the torch
+    body runs.  Traced, the body is the stage `darboux` of its frame, the
+    gather and varyings included, and counts the frame's covered pixels, as
+    shade_darboux does."""
+    pk, tile = _find_pk(textures, PIPELINE_MAPS["darboux"])
+    if device.type != "cuda" or pk is None:
+        return None
+
+    def body(setup, strips, cids, acc, uniforms, *, width, pixels, y_offset):
+        timing.mark("shade")
+        timing.shade_pixels("darboux.pixels")
+        darboux_cuda.chunk_body(setup, strips, cids, acc, pk, tile, uniforms["t_light_direction"],
+                                width=width, pixels=pixels, y_offset=y_offset)
+        timing.mark("darboux")
+
+    return body
 
 
 def shade_shadow(frag, uniforms, textures, config):
