@@ -17,7 +17,9 @@ the tracer is off drains what it issued while on; an occlusion frame's
 probe stage and covered pixels, eagerly and under marks on the CPU ring;
 a darboux frame's darboux_setup and darboux stages and covered pixels
 likewise, a skipped chunk body's darboux marks absent, and drained frames'
-pixels in their shade's counter (the shadow frame's marks unchanged);
+pixels in their shade's counter (the shadow frame's marks unchanged); a
+specular frame's specular stage and covered pixels likewise, a skipped
+chunk body's specular marks absent, and each pipeline's mark list its own;
 render_burst's host destination filled byte-equal to its kept frames, and
 render_sequence on the CPU eager, its spans kept, sequence.overlapped 0.
 
@@ -30,7 +32,8 @@ replay; a burst traced by torch.profiler with the tracer off
 holds the kernels it held before the tracer ran, the traced graph those and
 one mark kernel a mark; a traced occlusion burst's probe stage and covered
 pixels, beside the shadow frame's unchanged marks; a traced darboux burst's
-two stages and covered pixels.
+two stages and covered pixels; a traced specular burst's stage and covered
+pixels, its frames equal to the untraced burst's.
 """
 
 import collections
@@ -474,6 +477,104 @@ def test_drained_pixels_go_to_their_shade_counter(tracer, monkeypatch):
     assert snap["counters"]["darboux.pixels"] == covered["darboux"]
 
 
+def specular_scene(radius=0.45, size=64, **knobs):
+    model = Model(mesh=make_uv_sphere(radius, 8, 10), **make_textures(16))
+    s = Scene(model, "specular", RenderConfig(width=size, height=size, **knobs), device="cpu")
+    s.set_light_direction([0.3, 0.0, 0.95])
+    s.set_camera([0.2, 0.0, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
+    return s
+
+
+SPECULAR_MARKS = ["vertex", "binning", "raster", "shade", "specular", "shade"]
+
+
+def test_specular_stage_and_pixels_cpu(tracer):
+    """A traced eager specular frame counts its covered pixels (the counter
+    specular.pixels, not darboux.pixels or occlusion.pixels); under marks,
+    on a CPU ring, the frame gives the shade's stage specular and the same
+    pixels, and its frame bytes are those of the untraced frame."""
+    s = specular_scene()
+    untraced = s.render()
+    covered = int((untraced["z"] > F32_MIN).sum())
+    assert covered > 0
+    timing.enable()
+    traced = s.render()
+    assert torch.equal(traced["frame"], untraced["frame"])
+    counters = timing.snapshot()["counters"]
+    assert counters["specular.pixels"] == covered and counters["shade.frames"] == 1
+    assert "darboux.pixels" not in counters and "occlusion.pixels" not in counters
+    ring = timing._Ring(torch.device("cpu"), frames=4)
+    with timing.marking(ring) as marks:
+        s.render()  # eagerly every mark writes its stamp now, as a replay would
+    ring.issue(marks, lambda: None)
+    (fr,), _ = ring.drain()
+    assert fr["labels"] == SPECULAR_MARKS
+    assert fr["stages"]["specular"] > 0 and fr["stages"]["shade"] > 0
+    assert fr["pixels"] == covered and fr["pixels_counter"] == "specular.pixels" and fr["chunks"] == 1
+
+
+def test_specular_skipped_body_reads_absent(tracer, monkeypatch):
+    """A specular frame of three chunk bodies (strip_batch 8) whose covered
+    strips end inside the first: the second and third bodies are skipped
+    as a replay skips them (their mark nodes do not run), so their specular
+    marks read absent and the stage specular is the first body's alone."""
+    s = specular_scene(radius=0.25, strip_batch=8)
+    covered = int((s.render()["z"] > F32_MIN).sum())
+    ring = timing._Ring(torch.device("cpu"), frames=4)
+    skipped, real_mark = [False], ring.mark
+    monkeypatch.setattr(ring, "mark", lambda *a, **k: None if skipped[0] else real_mark(*a, **k))
+
+    def device_if(pred, body):
+        skipped[0] = not bool(pred)
+        try:
+            body()
+        finally:
+            skipped[0] = False
+
+    monkeypatch.setattr(graphs, "device_if", device_if)
+    timing.enable()
+    with timing.marking(ring) as marks:
+        s.render()
+    ring.issue(marks, lambda: None)
+    (fr,), _ = ring.drain()
+    bodies = SPECULAR_MARKS[3:5] * 3
+    assert fr["labels"] == SPECULAR_MARKS[:3] + bodies + ["shade"]
+    stamps = fr["stamps_ns"]
+    assert stamps[5:9] == [None] * 4 and None not in stamps[:5] + stamps[9:]
+    assert fr["stages"]["specular"] == pytest.approx((stamps[4] - stamps[3]) / 1e6)
+    assert fr["stages"]["shade"] == pytest.approx((stamps[3] - stamps[2] + stamps[9] - stamps[4]) / 1e6)
+    assert fr["chunks"] == 1 and fr["pixels"] == covered
+
+
+@pytest.mark.parametrize("name, make, labels, counter", [
+    ("shadow", scene, FRAME_MARKS[1:], None),
+    ("darboux", darboux_scene, DARBOUX_MARKS, "darboux.pixels"),
+    ("occlusion", occlusion_scene,
+     ["vertex", "binning", "raster", "binning", "raster", "shade", "probe", "shade"], "occlusion.pixels"),
+    ("specular", specular_scene, SPECULAR_MARKS, "specular.pixels"),
+], ids=["shadow", "darboux", "occlusion", "specular"])
+def test_each_pipeline_marks_its_own_stages(tracer, monkeypatch, name, make, labels, counter):
+    """Frames drained from a device's ring, one pipeline a case: each
+    frame's mark list is its pipeline's own (the shadow and darboux frames'
+    unchanged by the specular marks), and its covered pixels go to its
+    shade's counter only (none for shadow)."""
+    ring = timing._Ring(torch.device("cpu"), frames=4)
+    monkeypatch.setattr(timing, "_RINGS", {0: ring})
+    timing.enable()
+    s = make()
+    with timing.marking(ring) as marks:
+        covered = int((s.render()["z"] > F32_MIN).sum())
+    ring.issue(marks, lambda: None)
+    snap = timing.snapshot()
+    (fr,) = snap["frames"]
+    assert fr["labels"] == labels
+    pixel_counters = {k for k in snap["counters"] if k.endswith(".pixels")}
+    if counter is None:
+        assert fr["pixels"] is None and not pixel_counters
+    else:
+        assert fr["pixels"] == covered and fr["pixels_counter"] == counter
+        assert pixel_counters == {counter} and snap["counters"][counter] == covered
+
 
 @pytest.mark.parametrize("make", [scene, occlusion_scene], ids=["shadow", "occlusion"])
 def test_burst_fills_host_frames_cpu(tracer, make):
@@ -704,3 +805,42 @@ def test_card_darboux_burst_stages_and_pixels(card, tracer):
         assert fr["pixels"] == n and fr["chunks"] >= 1
     assert snap["counters"]["darboux.pixels"] == sum(want) + want[0]
     assert "occlusion.pixels" not in snap["counters"]
+
+
+@pytest.mark.card
+def test_card_specular_burst_stage_and_pixels(card, tracer):
+    """A traced 8-frame specular burst: every frame has the shade's stage
+    specular and its covered pixels, equal to the covered pixels of the
+    same frame rendered eagerly with the tracer off; the counter
+    specular.pixels is their sum with the first frame's again (the
+    capture's eager warm-up frame counts); the frames equal the untraced
+    burst's."""
+    from tiny_renderer_tpu_torch.app import flagship_model
+
+    cams = np.linspace(0.0, 1.0, 8, dtype=np.float32)
+    ligs = np.linspace(0.5, -0.5, 8, dtype=np.float32)
+    s = Scene(flagship_model(), "specular", RenderConfig(), device=card)
+    want = []
+    for c, l in zip(cams, ligs):
+        a = torch.tensor([c, l], device=card)
+        zero = torch.zeros((), device=card)
+        look_from = torch.stack([torch.sin(a[0]), zero, torch.cos(a[0])])
+        light = torch.stack([torch.sin(a[1]), zero, torch.cos(a[1])])
+        out = tframe.render_frame(s._geom, s._textures, light, look_from, torch.zeros(3, device=card),
+                                  torch.tensor([0.0, 1.0, 0.0], device=card), pipeline="specular",
+                                  config=s.config)
+        want.append(int((out["z"] > F32_MIN).sum()))
+    untraced = s.render_sequence(cams, ligs)
+    timing.enable()
+    traced = s.render_sequence(cams, ligs)
+    snap = timing.snapshot()
+    timing.disable()
+    assert np.array_equal(traced, untraced)
+    frames = snap["frames"]
+    assert len(frames) == 8
+    for fr, n in zip(frames, want):
+        assert fr["labels"][:4] == ["start", "vertex", "binning", "raster"]
+        assert fr["labels"][-2:] == ["shade", "shade"] and "specular" in fr["labels"]
+        assert fr["stages"]["specular"] > 0 and fr["pixels"] == n and fr["chunks"] >= 1
+    assert snap["counters"]["specular.pixels"] == sum(want) + want[0]
+    assert "darboux.pixels" not in snap["counters"] and "occlusion.pixels" not in snap["counters"]

@@ -412,7 +412,12 @@ def shade_normal_map(frag, uniforms, textures, config):
 
 def shade_specular(frag, uniforms, textures, config):
     """Normal-map diffuse + Phong specular (shader.rs:498-534).  torch.pow
-    may differ from XLA's pow in the last ulp."""
+    may differ from XLA's pow in the last ulp.  Traced, it is the stage
+    `specular` of its frame (the stage up to it keeps `shade`) and the
+    frame counts its covered pixels (timing.frame_pixels, counter
+    specular.pixels)."""
+    timing.mark("shade")
+    timing.shade_pixels("specular.pixels")
     s = sample_frag(textures, frag, ("texture", "normal_map", "specular_map"))
     color = s["texture"].to(torch.float32)
     t_n = ml.normalize3(ml.mat4_transform_vector(uniforms["it_m"], s["normal_map"]))
@@ -425,7 +430,9 @@ def shade_specular(frag, uniforms, textures, config):
         reflected[..., 2].clamp(min=0.0), s["specular_map"]
     )
     coef = (d + spec)[..., None]
-    return ml.rust_f32_to_u8((coef * color).clamp(max=255.0))
+    out = ml.rust_f32_to_u8((coef * color).clamp(max=255.0))
+    timing.mark("specular")
+    return out
 
 
 def shade_darboux(frag, uniforms, textures, config):

@@ -27,7 +27,8 @@ The tracer, off by default (``enable()``, ``disable()``, ``snapshot()``):
   eagerly, reads it into the counters; ``shade_pixels`` and
   ``frame_pixels`` do the same with the covered pixels of a frame whose
   shade asks for them (the occlusion probe: counter ``occlusion.pixels``;
-  the darboux shade: ``darboux.pixels``).  The ring is drained
+  the darboux shade: ``darboux.pixels``; the specular shade:
+  ``specular.pixels``).  The ring is drained
   (``drain()``) where the program already waits for the device, once it
   holds half a ring of frames, and at each snapshot; each frame yields its
   stages' device ms (the time from the previous mark that ran to each mark
@@ -442,7 +443,8 @@ def shade_pixels(counter):
     """Called by a shade as it is issued: with the tracer on, the frame's
     frame_pixels then counts its covered pixels under the counter
     `counter` ("occlusion.pixels" for the occlusion probe,
-    "darboux.pixels" for the darboux shade)."""
+    "darboux.pixels" for the darboux shade, "specular.pixels" for the
+    specular shade)."""
     if _ON:
         _LOCAL.pixels_counter = counter
 
