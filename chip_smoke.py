@@ -45,6 +45,23 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              darboux_launches; the kernel's device ms and the strip shade
              replayed with it and with the torch body, beside its bound
              (darboux_phase, runnable alone).
+2e. shadow — csrc/shadow.cu (the shadow strip chunk body, one thread a
+             fragment): frames and eager bursts byte-equal to the torch
+             chunk body's on the card at the 800x800 cell's orbit poses
+             under the resolved default (tex_tile 16), tex_tile 0,
+             shadow_tile 16, idx_int16, strip_pack_words off, strip_mask,
+             strip_planes, fuse_passes, strip_len 8 with strip_batch 1024
+             and row_bands 4; row slabs at a first row > 0; seeded synthetic
+             chunks (NaN/inf setup columns and shadow-map values, uncovered
+             lanes, fill slots); Scene.render and a 60-frame render_sequence
+             byte-equal to the torch body's eager frames, launches recorded
+             a replayed frame (one a chunk body, none under
+             compact_shade=False); a profiled replayed burst equal to
+             the unprofiled one, at most one shadow kernel a frame in its
+             trace, kernels a frame and shadow_launches; the
+             kernel's device ms and the strip shade replayed with it and
+             with the torch body, beside its bound (shadow_phase, runnable
+             alone).
 3. kernel  — every kernel mode against its plain torch twin on seeded random
              soups, the depth tie case, the flagship scene's two passes and
              five adversarial screen-space scenes (large and huge triangles,
@@ -269,6 +286,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -574,6 +592,41 @@ def host_ms(fn, n):
         torch.cuda.synchronize()
         best = min(best, (time.perf_counter() - t0) * 1e3)
     return best
+
+
+def pose_view(light, look_from, dev):
+    """(light, look_from, origin, up) as float32 tensors on dev."""
+    from tiny_renderer_tpu_torch.convert import to_tensor
+
+    return [to_tensor(np.float32(v), dev) for v in (light, look_from, [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])]
+
+
+def orbit_views(orbit, first, count, dev):
+    """pose_view of each of the orbit's poses first to first + count - 1."""
+    return [pose_view([math.sin(li), 0.0, math.cos(li)], [math.sin(c), 0.0, math.cos(c)], dev)
+            for c, li in zip(*orbit.angles(first, count))]
+
+
+def against_torch_body(name, module, plain, label, fn):
+    """fn() with a chunk-body kernel and with the torch body (inside
+    plain()), byte for byte, on the card; the kernel's module counts fn's
+    launches in LAUNCHES["body"], and none under the torch body.  Returns
+    the kernel's output and its launches."""
+    module.reset_launches()
+    got = fn()
+    launches = module.LAUNCHES["body"]
+    with plain():
+        want = fn()
+    torch.cuda.synchronize()
+    check(module.LAUNCHES["body"] == launches and launches > 0,
+          f"{label}: {launches} kernel launches, {module.LAUNCHES['body'] - launches} under the torch body")
+    bad = (got != want).reshape(-1, got.shape[-1]).any(-1)
+    if bool(bad.any()):
+        at = int(bad.nonzero()[0, 0])
+        phase(name, f"{label}: {int(bad.sum())} of {bad.numel()} pixels differ; first at {at}: "
+              f"{got.reshape(-1, got.shape[-1])[at].tolist()} against {want.reshape(-1, want.shape[-1])[at].tolist()}")
+    check(not bool(bad.any()), f"{label}: the kernel differs from the torch body")
+    return got, launches
 
 
 # The vertex phase: the prepare and setup kernels of csrc/vertex.cu against
@@ -936,18 +989,11 @@ def occlusion_phase(dev, smi):
     orbit = Orbit(OCCLUSION_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
     origin, up_y = [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]
 
-    def view(light, look_from):
-        return [to_tensor(np.float32(v), dev) for v in (light, look_from, origin, up_y)]
-
-    def orbit_views(first, count):
-        return [view([math.sin(li), 0.0, math.cos(li)], [math.sin(c), 0.0, math.cos(c)])
-                for c, li in zip(*orbit.angles(first, count))]
-
     # The frame constants, through the kernel: under each light, fragments
     # on the screen over a ramp plane against the plain version.
     w, h = config.width, config.height
-    uniform_sets = [tframe._uniforms(spec, config, *v)[1] for v in orbit_views(0, OCCLUSION_LIGHTS)]
-    uniform_sets += [tframe._uniforms(spec, config, *view(rng.normal(size=3), [0.2, 0.1, 0.98]))[1]
+    uniform_sets = [tframe._uniforms(spec, config, *v)[1] for v in orbit_views(orbit, 0, OCCLUSION_LIGHTS, dev)]
+    uniform_sets += [tframe._uniforms(spec, config, *pose_view(rng.normal(size=3), [0.2, 0.1, 0.98], dev))[1]
                      for _ in range(OCCLUSION_RANDOM)]
     base = uniform_sets[0]
     eye = torch.eye(4, dtype=torch.float32, device=dev)
@@ -976,7 +1022,7 @@ def occlusion_phase(dev, smi):
     check(moved >= OCCLUSION_LIGHTS, "too few lights occlude a fragment of the ramp plane")
 
     # The kernel against the plain version on adversarial fragments.
-    rendered = tframe.render_frame(sc._geom, sc._textures, *orbit_views(0, 1)[0], pipeline="occlusion",
+    rendered = tframe.render_frame(sc._geom, sc._textures, *orbit_views(orbit, 0, 1, dev)[0], pipeline="occlusion",
                                    config=config)
     planes = {"frame's": rendered["shadow"], "seeded": torch.from_numpy(
         np.where(rng.random((h, w)) < 0.2, np.float32(ml.F32_MIN),
@@ -1023,7 +1069,8 @@ def occlusion_phase(dev, smi):
         return occ
 
     with mock.patch.object(occlusion_cuda, "coefficient", recorded):
-        tframe.render_frame(sc._geom, sc._textures, *orbit_views(0, 1)[0], pipeline="occlusion", config=config)
+        tframe.render_frame(sc._geom, sc._textures, *orbit_views(orbit, 0, 1, dev)[0], pipeline="occlusion",
+                            config=config)
     for (xf, yf, zf, p, u, _dirs, cfg), _, occ in calls:
         ok, _ = same_bits(occ, shaders.occlusion_reference(xf, yf, zf, p, u, cfg))
         check(ok, f"the frame's chunk of {xf.numel()} fragments: the kernel differs from the plain version")
@@ -1044,7 +1091,7 @@ def occlusion_phase(dev, smi):
         slots = -(-n_strips // rc.strip_batch) * rc.strip_batch
         per_frame = len(tframe.shade_chunks(slots, rc.strip_batch)) if rc.compact_shade else 1
         bodies[cname] = per_frame
-        for v, (c, li) in zip(orbit_views(100, OCCLUSION_POSES), zip(*orbit.angles(100, OCCLUSION_POSES))):
+        for v, (c, li) in zip(orbit_views(orbit, 100, OCCLUSION_POSES, dev), zip(*orbit.angles(100, OCCLUSION_POSES))):
             s.set_light_direction([math.sin(li), 0.0, math.cos(li)])
             s.set_camera([math.sin(c), 0.0, math.cos(c)], origin, up_y)
             s.render()  # the first call captures
@@ -1153,15 +1200,20 @@ def plain_darboux():
     return mock.patch.dict(tframe.PIPELINES, {"darboux": dataclasses.replace(spec, fused_body=None)})
 
 
+def special_floats(rng, *shape, scale=1.0):
+    """Seeded float32 normals of `scale`, 4% of them DARBOUX_SPECIAL values."""
+    a = rng.normal(0.0, scale, shape).astype(np.float32)
+    at = rng.random(shape) < 0.04
+    a[at] = rng.choice(np.float32(DARBOUX_SPECIAL), size=int(at.sum()))
+    return a
+
+
 def darboux_setup(rng, n, dev):
     """Seeded setup columns of n triangles with NaN, +-inf, zeros and huge
     values among them, zero-area triangles, bases whose rows coincide or
     whose normal lies along a row (singular), as triangle_setup's dict."""
     def floats(*shape, scale=1.0):
-        a = rng.normal(0.0, scale, shape).astype(np.float32)
-        at = rng.random(shape) < 0.04
-        a[at] = rng.choice(np.float32(DARBOUX_SPECIAL), size=int(at.sum()))
-        return a
+        return special_floats(rng, *shape, scale=scale)
 
     out = {k: rng.integers(-3000, 3000, n).astype(np.int32) for k in ("a1", "b1", "c1", "a2", "b2", "c2")}
     out["cz"] = rng.integers(-40_000, 40_000, n).astype(np.int32)
@@ -1223,43 +1275,19 @@ def darboux_phase(dev, smi):
     orbit = Orbit(DARBOUX_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
     origin, up_y = [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]
 
-    def view(light, look_from):
-        return [to_tensor(np.float32(v), dev) for v in (light, look_from, origin, up_y)]
-
-    def orbit_views(first, count):
-        return [view([math.sin(li), 0.0, math.cos(li)], [math.sin(c), 0.0, math.cos(c)])
-                for c, li in zip(*orbit.angles(first, count))]
-
-    def both(label, fn):
-        """fn() with the kernel and with the torch body, byte for byte;
-        returns the kernel's output and its launches."""
-        darboux_cuda.reset_launches()
-        got = fn()
-        launches = darboux_cuda.LAUNCHES["body"]
-        with plain_darboux():
-            want = fn()
-        torch.cuda.synchronize()
-        check(darboux_cuda.LAUNCHES["body"] == launches and launches > 0,
-              f"{label}: {launches} kernel launches, {darboux_cuda.LAUNCHES['body'] - launches} under the torch body")
-        bad = (got != want).reshape(-1, got.shape[-1]).any(-1)
-        if bool(bad.any()):
-            at = int(bad.nonzero()[0, 0])
-            phase("darboux", f"{label}: {int(bad.sum())} of {bad.numel()} pixels differ; first at {at}: "
-                  f"{got.reshape(-1, got.shape[-1])[at].tolist()} against {want.reshape(-1, want.shape[-1])[at].tolist()}")
-        check(not bool(bad.any()), f"{label}: the kernel differs from the torch body")
-        return got, launches
+    both = functools.partial(against_torch_body, "darboux", darboux_cuda, plain_darboux)
 
     # The 800x800 frame at orbit poses under each config.
     w, h = config.width, config.height
     cases, black = 0, {}
     for i, (cname, knobs) in enumerate(DARBOUX_CONFIGS.items()):
         rc = dataclasses.replace(sc.config, **knobs).resolve("darboux")
-        for v in orbit_views(50 * i, DARBOUX_POSES):
+        for v in orbit_views(orbit, 50 * i, DARBOUX_POSES, dev):
             both(f"{cname} frame", lambda: tframe.render_frame(sc._geom, sc._textures, *v, pipeline="darboux",
                                                                config=rc, needs_z=False)["frame"])
             cases += 1
     # Row slabs.
-    v = orbit_views(7, 1)[0]
+    v = orbit_views(orbit, 7, 1, dev)[0]
     _, u = tframe._uniforms(spec, config, *v)
     setup = triangle_setup(sc._geom, u, config, needs=spec.needs)
     for rows, y0 in DARBOUX_SLABS:
@@ -1274,7 +1302,7 @@ def darboux_phase(dev, smi):
     normal[third == 0] = 0.0
     normal[third == 1] = (pos[:, 1] - pos[:, 0])[third == 1][:, None, :]
     geom["normal_tri"] = normal
-    for v in orbit_views(300, DARBOUX_POSES):
+    for v in orbit_views(orbit, 300, DARBOUX_POSES, dev):
         out, _ = both("degenerate normals", lambda: tframe.render_frame(
             geom, sc._textures, *v, pipeline="darboux", config=config)["frame"])
         covered = tframe.render_frame(geom, sc._textures, *v, pipeline="darboux", config=config)["z"] > ml.F32_MIN
@@ -1309,7 +1337,7 @@ def darboux_phase(dev, smi):
     for cname, knobs, bodies in (("default", {}, per_frame), ("compact_shade=False", dict(compact_shade=False), 0)):
         s = Scene(sc.model, "darboux", dataclasses.replace(sc.config, **knobs), device=dev)
         rc = s.config.resolve("darboux")
-        for v, (c, li) in zip(orbit_views(100, DARBOUX_POSES_REPLAYED),
+        for v, (c, li) in zip(orbit_views(orbit, 100, DARBOUX_POSES_REPLAYED, dev),
                               zip(*orbit.angles(100, DARBOUX_POSES_REPLAYED))):
             s.set_light_direction([math.sin(li), 0.0, math.cos(li)])
             s.set_camera([math.sin(c), 0.0, math.cos(c)], origin, up_y)
@@ -1359,7 +1387,7 @@ def darboux_phase(dev, smi):
         calls.append((a, k))
         launch(*a, **k)
 
-    v = orbit_views(0, 1)[0]
+    v = orbit_views(orbit, 0, 1, dev)[0]
     with mock.patch.object(darboux_cuda, "chunk_body", recorded):
         tframe.render_frame(sc._geom, sc._textures, *v, pipeline="darboux", config=config)
     (a, k), *_ = calls
@@ -1397,6 +1425,262 @@ def darboux_phase(dev, smi):
           f"{bound_ms * 1e3:.3f} us ({result['bytes']} B at 3.35 TB/s, {pixels} covered pixels), "
           f"{bound_ms / alone:.3%} of it alone, {bound_ms / result['in_burst_ms']:.3%} in the burst  [{smi}]")
     print(json.dumps({"darboux": result}), flush=True)
+    return result
+
+
+SHADOW_CELL = "diablo-shadow.orbit-burst"
+SHADOW_SEED = 2_147_526_026
+SHADOW_POSES = 3  # orbit poses of the 800x800 frame a config
+SHADOW_BURST = 4  # eager burst frames a config
+# The eager frames' and bursts' configs: the resolved default (tex_tile 16),
+# the row-major packed plane, the tile-swizzled shadow map, the int16 idx
+# plane, u8 triples, the strip mask, the raster's varying planes (which the
+# kernel does not read), both passes in one launch (bursts), occlusion's
+# strip shape (896 fill slots in the last chunk body) and row bands.
+SHADOW_CONFIGS = {
+    "default": {}, "tex_tile 0": dict(auto_tune=False), "shadow_tile 16": dict(shadow_tile=16),
+    "idx_int16": dict(idx_int16=True), "strip_pack_words=False": dict(strip_pack_words=False),
+    "strip_mask": dict(strip_mask=True), "strip_planes": dict(strip_planes=True), "fuse_passes": dict(fuse_passes=True),
+    "strip_len 8, strip_batch 1024": dict(strip_len=8, strip_batch=1024), "row_bands 4": dict(row_bands=4)}
+SHADOW_SLABS = ((160, 320), (96, 704))  # (rows, first row) of row slabs of the 800x800 frame
+SHADOW_TRIANGLES = 5096  # synthetic chunks' triangles
+SHADOW_POSES_REPLAYED = 3  # Scene.render poses
+SHADOW_TIMED = 200
+SHADOW_KERNEL = re.compile(r"shadow_kernel")
+# The body's least traffic (csrc/shadow.cu's note): a covered pixel's winner
+# id, shadow-map value, texel word and output word, 4 B each; a winner's
+# setup columns once (7 int32 edge coefficients, 6 uv, 3 intensity and 3
+# depth floats).
+SHADOW_PIXEL_BYTES = 16
+SHADOW_TRIANGLE_BYTES = 76
+
+
+def plain_shadow():
+    """The torch chunk body on CUDA tensors too, inside the returned
+    context: the built-in spec without its fused body.  For eager frames,
+    since a graph captured inside it would be cached with the torch body."""
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+
+    spec = tframe.PIPELINES["shadow"]
+    return mock.patch.dict(tframe.PIPELINES, {"shadow": dataclasses.replace(spec, fused_body=None)})
+
+
+def shadow_phase(dev, smi):
+    """Phase 2e: csrc/shadow.cu on the card.  Builds it (ptxas registers and
+    spills printed).  The kernel's frames byte-equal to the torch chunk
+    body's (plain_shadow) on the same CUDA tensors, eagerly: the cell's
+    800x800 frame at SHADOW_POSES orbit poses and a SHADOW_BURST-frame burst
+    under each of SHADOW_CONFIGS; row slabs at a first row > 0
+    (parallel.sharding's y_offset); seeded synthetic chunks through
+    _shade_strips (NaN/inf setup columns and shadow-map values, zero-area
+    triangles, uncovered lanes, fill slots) at tex_tile 16 and 0,
+    shadow_tile 0 and 16, both writebacks, y_offset 0 and 96, and with the
+    map's rows further apart than its width.  Then
+    Scene.render (replayed) byte-equal to the torch body's eager frame at
+    SHADOW_POSES_REPLAYED poses and a 60-frame render_sequence byte-equal
+    to the torch body's eager burst, with the launches recorded a replayed
+    frame (one a chunk body in the graph) and none under
+    compact_shade=False (the full-screen torch shade); torch.profiler over
+    a replayed render_sequence: its frames equal to the unprofiled ones,
+    at most one shadow kernel a frame in the trace, kernels a frame, and
+    the snapshot's shadow_launches.  The kernel's device ms on
+    the frame's first chunk (the launch queue held full), and the strip
+    shade alone replayed with the kernel and with the torch body, beside
+    the bound (SHADOW_PIXEL_BYTES a covered pixel and SHADOW_TRIANGLE_BYTES
+    a winning triangle at 3.35 TB/s).  Returns the numbers for the kernel
+    table."""
+    from benchmark import harness, tracing
+    from benchmark.orbit import Orbit
+    from tiny_renderer_tpu_torch import Scene
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.ops import raster_cuda, shadow_cuda
+    from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+    from tiny_renderer_tpu_torch.pipelines.graphs import CapturedGraph
+    from tiny_renderer_tpu_torch.utils import timing
+
+    lib, seconds, log = raster_cuda.build(force=True, source=shadow_cuda.SOURCE)
+    phase("shadow", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s")
+    registers = [line.strip() for line in log.splitlines()
+                 if "Compiling entry" in line or "registers" in line or "spill" in line]
+    for line in registers:
+        phase("shadow", line)
+
+    cell = harness.find_cell(SHADOW_CELL)
+    sc = harness.build_scene(cell.config, SHADOW_SEED, dev)[0]
+    config = sc.config.resolve("shadow")
+    spec = tframe.PIPELINES["shadow"]
+    rng = np.random.default_rng(SHADOW_SEED)
+    orbit = Orbit(SHADOW_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
+    origin, up_y = [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]
+
+    both = functools.partial(against_torch_body, "shadow", shadow_cuda, plain_shadow)
+
+    # The 800x800 frame at orbit poses, and an eager burst, under each config.
+    w, h = config.width, config.height
+    cases, shaded = 0, {}
+    for i, (cname, knobs) in enumerate(SHADOW_CONFIGS.items()):
+        rc = dataclasses.replace(sc.config, **knobs).resolve("shadow")
+        for v in orbit_views(orbit, 50 * i, SHADOW_POSES, dev):
+            out, _ = both(f"{cname} frame", lambda: tframe.render_frame(
+                sc._geom, sc._textures, *v, pipeline="shadow", config=rc, needs_z=False)["frame"])
+            cases += 1
+        cams, ligs = (to_tensor(np.float32(a), dev) for a in orbit.angles(25, SHADOW_BURST))
+        out, _ = both(f"{cname} burst", lambda: tframe._render_burst_eager(
+            sc._geom, sc._textures, cams, ligs, pipeline="shadow", config=rc, keep_frames=True)["frames"])
+        shaded[cname] = round(float((out > 0).any(-1).float().mean()), 4)
+        cases += 1
+    # Row slabs, over the whole frame's shadow map.
+    v = orbit_views(orbit, 7, 1, dev)[0]
+    shadow_z = tframe.render_frame(sc._geom, sc._textures, *v, pipeline="shadow", config=config)["shadow"]
+    _, u = tframe._uniforms(spec, config, *v)
+    setup = triangle_setup(sc._geom, u, config, needs=spec.needs)
+    for rows, y0 in SHADOW_SLABS:
+        both(f"the slab of rows {y0}..{y0 + rows}", lambda: tframe._camera_pass_and_shade(
+            setup, u, "shadow", sc._textures, config, "kernel", shadow_z, False, rows=rows, y0=y0)[0])
+        cases += 1
+    # Synthetic chunks through _shade_strips: the darboux phase's setup
+    # columns with intensities and depths of the same kind, a shadow map of
+    # special values, random winners.
+    syn = darboux_setup(rng, SHADOW_TRIANGLES, dev)
+    syn["intensity"] = torch.from_numpy(special_floats(rng, SHADOW_TRIANGLES, 3)).to(dev)
+    syn["zv"] = torch.from_numpy(special_floats(rng, SHADOW_TRIANGLES, 3, scale=2.0)).to(dev)
+    syn_map = torch.from_numpy(special_floats(rng, h, w, scale=2.0)).to(dev)
+    idx = torch.from_numpy(rng.integers(-1, SHADOW_TRIANGLES, (h, w)).astype(np.int32)).to(dev)
+    idx[torch.from_numpy(rng.random((h, w)) < 0.3).to(dev)] = -1
+    for tile_knobs in ({}, dict(auto_tune=False)):
+        for shadow_tile in (0, 16):
+            for pack in (True, False):
+                rc = dataclasses.replace(sc.config, strip_pack_words=pack, shadow_tile=shadow_tile,
+                                         **tile_knobs).resolve("shadow")
+                textures = tframe._with_packed_plane(sc._textures, "shadow", rc)
+                for y0 in (0, 96):
+                    both(f"synthetic chunks, tex_tile {rc.tex_tile}, shadow_tile {shadow_tile}, pack {pack}, "
+                         f"y_offset {y0}", lambda: tframe._shade_strips(syn, idx, "shadow", u, textures, rc, syn_map,
+                                                                        y_offset=y0))
+                    cases += 1
+    # The same map read in place with its rows further apart than its width,
+    # as the raster's depth plane lies.
+    padded = torch.full((h, w + 96), math.nan, device=dev)[:, :w]
+    padded.copy_(syn_map)
+    for shadow_tile in (0, 16):
+        rc = dataclasses.replace(sc.config, shadow_tile=shadow_tile).resolve("shadow")
+        both(f"synthetic chunks, a row-padded map, shadow_tile {shadow_tile}",
+             lambda: tframe._shade_strips(syn, idx, "shadow", u, sc._textures, rc, padded))
+        cases += 1
+    phase("shadow", f"{cases} cases byte-equal to the torch body on the card: the {w}x{h} frame at {SHADOW_POSES} "
+          f"poses and a {SHADOW_BURST}-frame burst under {list(SHADOW_CONFIGS)}, row slabs {SHADOW_SLABS}, "
+          f"synthetic chunks (NaN/inf columns and map values, uncovered lanes, fill slots; tex_tile 16 and 0, "
+          f"shadow_tile 0 and 16, both writebacks, y_offset 0 and 96; a row-padded map); lit share of the bursts' "
+          f"pixels {shaded}")
+
+    # Replayed frames and bursts against the torch body's eager ones.
+    n_seq = cell.traffic["frames_per_call"]
+    cams, ligs = orbit.angles(200, n_seq)
+    n_strips = -(-w * h // config.strip_len)
+    slots = -(-n_strips // config.strip_batch) * config.strip_batch
+    per_frame = len(tframe.shade_chunks(slots, config.strip_batch))
+    for cname, knobs, bodies in (("default", {}, per_frame), ("compact_shade=False", dict(compact_shade=False), 0)):
+        s = Scene(sc.model, "shadow", dataclasses.replace(sc.config, **knobs), device=dev)
+        rc = s.config.resolve("shadow")
+        for v, (c, li) in zip(orbit_views(orbit, 100, SHADOW_POSES_REPLAYED, dev),
+                              zip(*orbit.angles(100, SHADOW_POSES_REPLAYED))):
+            s.set_light_direction([math.sin(li), 0.0, math.cos(li)])
+            s.set_camera([math.sin(c), 0.0, math.cos(c)], origin, up_y)
+            s.render()  # the first call captures
+            shadow_cuda.reset_launches()
+            got = s.render()
+            check(shadow_cuda.LAUNCHES == {"body": bodies},
+                  f"{cname}: shadow launches recorded a replayed frame {shadow_cuda.LAUNCHES}, not {bodies}")
+            with plain_shadow():
+                want = tframe.render_frame(s._geom, s._textures, *v, pipeline="shadow", config=rc)
+            for k in ("frame", "z", "shadow", "overflow"):
+                check(torch.equal(got[k], want[k]), f"{cname}: replayed {k} differs from the torch body's frame")
+        s.render_sequence(cams, ligs)  # captures the burst frame
+        shadow_cuda.reset_launches()
+        seq = s.render_sequence(cams, ligs)
+        check(shadow_cuda.LAUNCHES == {"body": bodies * n_seq},
+              f"{cname}: shadow launches recorded in a {n_seq}-frame render_sequence {shadow_cuda.LAUNCHES}")
+        with plain_shadow():
+            want = tframe._render_burst_eager(s._geom, s._textures, to_tensor(cams, dev), to_tensor(ligs, dev),
+                                              pipeline="shadow", config=rc, keep_frames=True)
+        check(np.array_equal(seq, want["frames"].cpu().numpy()[:, ::-1]),
+              f"{cname}: the {n_seq}-frame render_sequence differs from the torch body's eager burst")
+        check(not bool(want["overflow"].any()), f"{cname}: the burst overflowed")
+        if cname == "default":
+            # torch.profiler can miss kernels of a conditional node's body
+            # after other profiles in the process (PERF.md §7), so that each
+            # frame's body ran is shown by the profiled burst's frames, equal
+            # to the unprofiled ones; the trace shows that no skipped body
+            # ran (at most one kernel a frame).
+            shadow_cuda.reset_launches()
+            events, profiled = tracing.profile(lambda: s.render_sequence(cams, ligs), dev)
+            trace = tracing.summarize(events, frames=n_seq)
+            launches = timing.snapshot()["shadow_launches"]
+            ran_ms = [t * 1e3 for name, t in trace.kernels if SHADOW_KERNEL.search(name)]
+            kernels_a_frame = len(trace.kernels) / n_seq
+            check(np.array_equal(profiled, seq), f"the profiled {n_seq}-frame render_sequence differs from the "
+                  f"unprofiled one")
+            check(0 < len(ran_ms) <= n_seq, f"{len(ran_ms)} shadow kernels in a profiled replayed {n_seq}-frame "
+                  f"render_sequence: more than one a frame, or none")
+            check(launches == {"body": per_frame * n_seq}, f"shadow_launches {launches}")
+    phase("shadow", f"Scene.render at {SHADOW_POSES_REPLAYED} poses and a {n_seq}-frame render_sequence "
+          f"byte-equal to the torch body's eager frames (default and compact_shade=False); launches recorded a "
+          f"replayed frame {per_frame} (one a chunk body in the graph, run or skipped), 0 under "
+          f"compact_shade=False; profiled replayed burst byte-equal to the unprofiled one: {kernels_a_frame:.2f} "
+          f"kernels a frame, {len(ran_ms)} shadow kernels recorded in {n_seq} frames, {float(np.mean(ran_ms)):.4f} "
+          f"ms each; shadow_launches {launches}")
+
+    # The kernel's time: alone on the frame's first chunk with the launch
+    # queue held full, and the strip shade replayed with the kernel and with
+    # the torch body.
+    calls = []
+    launch = shadow_cuda.chunk_body
+
+    def recorded(*a, **k):
+        calls.append((a, k))
+        launch(*a, **k)
+
+    v = orbit_views(orbit, 0, 1, dev)[0]
+    with mock.patch.object(shadow_cuda, "chunk_body", recorded):
+        tframe.render_frame(sc._geom, sc._textures, *v, pipeline="shadow", config=config)
+    (a, k), *_ = calls
+    columns, strips, shadow_map = a[0], a[1], a[6]
+    frame_idx = strips.reshape(-1)[:w * h].reshape(h, w)
+    winners = frame_idx[frame_idx >= 0]
+    pixels, triangles = winners.numel(), torch.unique(winners).numel()
+    alone = time_launches(lambda: shadow_cuda.chunk_body(*a, **k), SHADOW_TIMED, hold=True)
+    textures = tframe._with_packed_plane(sc._textures, "shadow", config)
+    uniforms = {"shadow_matrix": a[8], "i_vpmv": a[9]}
+
+    def shade(idx):
+        return tframe._shade_strips(columns, idx, "shadow", uniforms, textures, config, shadow_map)
+
+    g_kernel = CapturedGraph(shade, [frame_idx], "the shadow strip shade")
+    with plain_shadow():
+        g_plain = CapturedGraph(shade, [frame_idx], "the torch shadow strip shade")
+    check(g_kernel.shadow_launches == {"body": per_frame} and not any(g_plain.shadow_launches.values()),
+          f"shadow launches recorded: {g_kernel.shadow_launches}, torch body {g_plain.shadow_launches}")
+    check(torch.equal(g_kernel(frame_idx).clone(), g_plain(frame_idx)), "the replayed strip shades differ")
+    ms = {}
+    for label, g in (("plain", g_plain), ("kernel", g_kernel), ("kernel2", g_kernel), ("plain2", g_plain)):
+        ms[label] = time_launches(lambda g=g: g.graph.replay(), SHADOW_TIMED, hold=True)
+    ms_kernel, ms_plain = min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"])
+    nbytes = pixels * SHADOW_PIXEL_BYTES + triangles * SHADOW_TRIANGLE_BYTES
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    result = {
+        "device_ms": alone, "shade_graph_ms": ms_kernel, "plain_shade_graph_ms": ms_plain,
+        "in_burst_ms": float(np.mean(ran_ms)), "slots": a[2].numel(), "pixels": pixels, "triangles": triangles,
+        "bound_ms": bound_ms, "bytes": nbytes, "kernels_per_frame": kernels_a_frame,
+        "launches_recorded_a_frame": per_frame, "cases": cases, "registers": registers, "build_s": seconds,
+    }
+    phase("shadow", f"the kernel on the frame's first chunk ({a[2].numel()} slots of {config.strip_len}): "
+          f"{alone:.4f} ms a launch (queue held full), {result['in_burst_ms']:.4f} ms in the burst; the strip "
+          f"shade replayed {ms_kernel:.4f} ms against the torch body's {ms_plain:.4f} ms; bound "
+          f"{bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s: {pixels} covered pixels, {triangles} winning "
+          f"triangles), {bound_ms / alone:.3%} of it alone, {bound_ms / result['in_burst_ms']:.3%} in the burst  "
+          f"[{smi}]")
+    print(json.dumps({"shadow": result}), flush=True)
     return result
 
 
@@ -3222,6 +3506,10 @@ def main() -> int:
     # -- 2d. darboux ----------------------------------------------------------
     darboux_phase(dev, smi)
     lap("darboux")
+
+    # -- 2e. shadow -----------------------------------------------------------
+    shadow_phase(dev, smi)
+    lap("shadow")
 
     cfg = RenderConfig().resolve("shadow")  # 800x800, the default config
     grid = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)

@@ -39,8 +39,9 @@
 // Exactness.  Built with -fmad=false and IEEE division and square root
 // (nvcc's defaults without --use_fast_math), every expression is written in
 // ops/mathlib.py's, pipelines/frame.py's and pipelines/shaders.py's order,
-// operation for operation, so the words equal the torch body's bit for bit
-// on the same device:
+// operation for operation (the pieces shared with the other shade kernels
+// in shade_common.cuh), so the words equal the torch body's bit for bit on
+// the same device:
 //  * the edge coefficients as int32 -> float32 (round to nearest), the
 //    pixel as float32 of its int64 coordinates (exact), the barycentrics
 //    1 - (cx + cy) / cz, cx / cz, cy / cz;
@@ -64,23 +65,17 @@
 //    kept (an infinite t gives NaN), then `as u8`: NaN -> 0, saturate at
 //    [0, 255], truncate.
 
-#include <cuda_runtime.h>
-
-#include <cstdint>
+#include "shade_common.cuh"
 
 namespace {
+
+using shade::dot3;
 
 constexpr int kThreads = 256;  // threads a block, one fragment each
 constexpr float kInv255 = 1.0f / 255.0f;  // torch's x / 255.0 on the card: x * float32(1 / 255)
 
 struct Setup {
-  const int* a1;  // (T,) int32 edge coefficients
-  const int* b1;
-  const int* c1;
-  const int* a2;
-  const int* b2;
-  const int* c2;
-  const int* cz;
+  shade::Edges e;  // (T,) int32 edge coefficients
   const float* uv;  // (T, 3, 2)
   const float* t_norm;  // (T, 3, 3)
   const float* row0n;  // (T, 3)
@@ -91,37 +86,15 @@ struct Setup {
 
 struct Args {
   Setup s;
-  const void* strips;  // (n_strips, strip_len) winner ids, int32 or int16
-  const long long* cids;  // (n_slots,) strip ids of the chunk's slots
+  shade::Chunk c;
   const int* plane;  // (h, w, 2) packed texture and tangent-map words
   const float* light;  // t_light_direction (3,)
-  void* acc;  // (n_strips + 1, strip_len) int32 words, or (n_strips + 1, strip_len, 3) u8
-  bool acc_words;  // acc holds packed words
-  int n_slots, n_strips, strip_len, pixels, width, y_offset;
   int tex_w, tex_h, tile;
 };
-
-__device__ float dot3(const float* a, const float* b) {
-  return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
-}
 
 __device__ void normalize3(const float* a, float* out) {
   const float n = __fsqrt_rn(dot3(a, a));
   for (int i = 0; i < 3; ++i) out[i] = a[i] / n;
-}
-
-// mathlib.rust_f32_to_u32, then the clamp of shaders._tex_coords.
-__device__ long long tex_coord(float x, int dim) {
-  if (isnan(x)) x = 0.0f;
-  x = fminf(fmaxf(x, 0.0f), 4294967040.0f);
-  const long long c = static_cast<long long>(static_cast<unsigned int>(x));
-  return c < dim - 1 ? c : dim - 1;
-}
-
-// mathlib.rust_f32_to_u8.
-__device__ unsigned int to_u8(float x) {
-  if (isnan(x)) x = 0.0f;
-  return static_cast<unsigned int>(fminf(fmaxf(x, 0.0f), 255.0f));
 }
 
 // shaders._decode_normal of one packed word's RGB.
@@ -133,43 +106,22 @@ __device__ void decode_normal(int word, float* n) {
 
 template <typename Idx>
 __global__ void __launch_bounds__(kThreads) darboux_kernel(Args a) {
-  const int t = blockIdx.x * kThreads + threadIdx.x;
-  if (t >= a.n_slots * a.strip_len) return;
-  const int slot = t / a.strip_len, lane = t - slot * a.strip_len;
-  const long long cid = a.cids[slot];
-  if (cid >= a.n_strips) return;  // a fill slot: the torch body writes the spare row
-  const long long at = cid * a.strip_len + lane;  // strips[cid][lane], and acc's row cid
-  const int id = static_cast<int>(static_cast<const Idx*>(a.strips)[at]);
+  long long at;
+  int id;
+  if (!shade::chunk_fragment<Idx>(a.c, blockIdx.x * kThreads + threadIdx.x, &at, &id)) return;
 
   int word = 0;
   if (id >= 0) {
     const Setup& s = a.s;
-    // The pixel (frame._shade_strips: base clamped to the last pixel).
-    const long long base = at < a.pixels - 1 ? at : a.pixels - 1;
-    const float px = static_cast<float>(base % a.width);
-    const float py = static_cast<float>(base / a.width + a.y_offset);
-    // Barycentrics (frame._gather_fragments).
-    const float cx = (static_cast<float>(s.a1[id]) * px + static_cast<float>(s.b1[id]) * py) +
-                     static_cast<float>(s.c1[id]);
-    const float cy = (static_cast<float>(s.a2[id]) * px + static_cast<float>(s.b2[id]) * py) +
-                     static_cast<float>(s.c2[id]);
-    const float cz = static_cast<float>(s.cz[id]);
-    const float b[3] = {1.0f - (cx + cy) / cz, cx / cz, cy / cz};
+    float px, py, b[3];
+    shade::pixel_barycentrics(a.c, s.e, at, id, &px, &py, b);
     // Varyings (shaders.compute_varyings): uv and local_z interpolated.
-    const float* uv = s.uv + 6 * id;
-    const float* tn = s.t_norm + 9 * id;
     float u[2], local_z[3];
-    for (int c = 0; c < 2; ++c) u[c] = (uv[c] * b[0] + uv[2 + c] * b[1]) + uv[4 + c] * b[2];
-    for (int c = 0; c < 3; ++c) local_z[c] = (tn[c] * b[0] + tn[3 + c] * b[1]) + tn[6 + c] * b[2];
+    for (int c = 0; c < 2; ++c) u[c] = shade::interpolate(s.uv + 6 * id + c, 2, b);
+    for (int c = 0; c < 3; ++c) local_z[c] = shade::interpolate(s.t_norm + 9 * id + c, 3, b);
 
     // The two maps at one texel of the packed plane (shaders.sample_maps).
-    const long long tx = tex_coord(u[0] * static_cast<float>(a.tex_w), a.tex_w);
-    const long long ty = tex_coord(u[1] * static_cast<float>(a.tex_h), a.tex_h);
-    long long texel = ty * a.tex_w + tx;
-    if (a.tile) {
-      const long long tl = a.tile;
-      texel = ((ty / tl * (a.tex_w / tl) + tx / tl) * tl + ty % tl) * tl + tx % tl;
-    }
+    const long long texel = shade::texel_index(u, a.tex_w, a.tex_h, a.tile);
     const int color = __ldg(a.plane + 2 * texel);
     float sample[3];
     decode_normal(__ldg(a.plane + 2 * texel + 1), sample);
@@ -208,18 +160,9 @@ __global__ void __launch_bounds__(kThreads) darboux_kernel(Args a) {
     const float diff = dot3(a.light, normal);
 
     // mathlib.color_blend(texel, black, diff), then the word.
-    const float black = (1.0f - diff) * 0.0f;
-    for (int c = 0; c < 3; ++c) {
-      const float texel_c = static_cast<float>((color >> (8 * c)) & 0xFF);
-      word |= static_cast<int>(to_u8(diff * texel_c + black) << (8 * c));
-    }
+    word = shade::blend_black_word(color, diff);
   }
-  if (a.acc_words) {
-    static_cast<int*>(a.acc)[at] = word;
-  } else {
-    unsigned char* out = static_cast<unsigned char*>(a.acc) + 3 * at;
-    for (int c = 0; c < 3; ++c) out[c] = static_cast<unsigned char>((word >> (8 * c)) & 0xFF);
-  }
+  shade::store(a.c, at, word);
 }
 
 }  // namespace
@@ -244,9 +187,9 @@ int darboux_chunk_body(const int* a1, const int* b1, const int* c1, const int* a
   if (n_slots <= 0 || n_strips <= 0 || strip_len <= 0 || pixels <= 0 || width <= 0 || tex_w <= 0 ||
       tex_h <= 0 || tile < 0 || (idx_bytes != 4 && idx_bytes != 2))
     return (int)cudaErrorInvalidValue;
-  const Args a{{a1, b1, c1, a2, b2, c2, cz, uv, t_norm, row0n, row1n, du, dv},
-               strips, cids, plane, light, acc, acc_words != 0,
-               n_slots, n_strips, strip_len, pixels, width, y_offset, tex_w, tex_h, tile};
+  const Args a{{{a1, b1, c1, a2, b2, c2, cz}, uv, t_norm, row0n, row1n, du, dv},
+               {strips, cids, acc, acc_words != 0, n_slots, n_strips, strip_len, pixels, width, y_offset},
+               plane, light, tex_w, tex_h, tile};
   const long long threads = static_cast<long long>(n_slots) * strip_len;
   const unsigned int blocks = static_cast<unsigned int>((threads + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -35,8 +35,9 @@
 // Exactness.  Built with -fmad=false and IEEE division and square root
 // (nvcc's defaults without --use_fast_math), every expression is written in
 // ops/mathlib.py's and pipelines/shaders.py's order, operation for
-// operation, so the result equals the torch version bit for bit on the same
-// device (acosf, sinf and cosf are the CUDA math library's, as torch's
+// operation (the pieces shared with the other shade kernels in
+// shade_common.cuh), so the result equals the torch version bit for bit on
+// the same device (acosf, sinf and cosf are the CUDA math library's, as torch's
 // kernels call them):
 //  * mathlib.mat4_transform_point: ((m0 x + m1 y) + m2 z) + m3 per row, each
 //    row divided by w; mat4_mul and mat3_vec in nalgebra's order; norm3 as
@@ -60,9 +61,12 @@
 //    sample order from 1.  (On the CPU torch divides; the CPU twin is
 //    held to JAX there, the kernel to the twin on the card.)
 
-#include <cuda_runtime.h>
+#include "shade_common.cuh"
 
 namespace {
+
+using shade::dot3;
+using shade::mat4_row;
 
 constexpr int kThreads = 256;  // threads a block, one fragment each
 
@@ -70,10 +74,6 @@ struct Constants {
   float rot[9];  // rotation_between((0, 0, 1), light), row-major
   float sm[16];  // shadow_matrix * i_vpmv, row-major
 };
-
-__device__ float dot3(const float* a, const float* b) {
-  return (a[0] * b[0] + a[1] * b[1]) + a[2] * b[2];
-}
 
 __device__ float norm3(const float* a) {
   return static_cast<float>(sqrt(static_cast<double>(dot3(a, a))));
@@ -132,31 +132,8 @@ __device__ void constants(const float* i_m, const float* light_dir, const float*
   const float* a = shadow_matrix;
   const float* b = i_vpmv;
   for (int i = 0; i < 4; ++i) {
-    for (int j = 0; j < 4; ++j) {
-      k->sm[4 * i + j] = (a[4 * i] * b[j] + a[4 * i + 1] * b[4 + j]) +
-                         (a[4 * i + 2] * b[8 + j] + a[4 * i + 3] * b[12 + j]);
-    }
+    for (int j = 0; j < 4; ++j) k->sm[4 * i + j] = shade::mat4_mul_entry(a, b, i, j);
   }
-}
-
-// Row i of m (p, 1): ((m0 x + m1 y) + m2 z) + m3.
-__device__ float row(const float* m, int i, float x, float y, float z) {
-  return ((m[4 * i] * x + m[4 * i + 1] * y) + m[4 * i + 2] * z) + m[4 * i + 3];
-}
-
-// mathlib.rust_round: f32::round, half away from zero.
-__device__ float rust_round(float x) {
-  const float f = floorf(x);
-  const float frac = x - f;
-  const float up = f + 1.0f;
-  return frac > 0.5f ? up : (frac < 0.5f ? f : (x >= 0.0f ? up : f));
-}
-
-// mathlib.rust_f32_to_u32: NaN -> 0, saturate at [0, 4294967040], truncate.
-__device__ unsigned long long f32_to_u32(float x) {
-  if (isnan(x)) x = 0.0f;
-  x = fminf(fmaxf(x, 0.0f), 4294967040.0f);
-  return static_cast<unsigned long long>(static_cast<unsigned int>(x));
 }
 
 struct Args {
@@ -180,17 +157,7 @@ struct Args {
 
 // shaders.shadow_flat_indices for one coordinate pair.
 __device__ unsigned int plane_index(const Args& a, float sx, float sy) {
-  const unsigned long long ix = f32_to_u32(rust_round(sx));
-  const unsigned long long iy = f32_to_u32(rust_round(sy));
-  unsigned long long flat = (ix + iy * static_cast<unsigned long long>(a.width)) & 0xFFFFFFFFull;
-  if (flat > a.size - 1) flat = a.size - 1;
-  unsigned int f = static_cast<unsigned int>(flat);
-  if (a.tile) {
-    const unsigned int t = a.tile, w = a.width;
-    const unsigned int cy = f / w, cx = f - cy * w;
-    f = ((cy / t * (w / t) + cx / t) * t + cy % t) * t + cx % t;
-  }
-  return f;
+  return shade::shadow_index(sx, sy, a.width, a.size, a.tile);
 }
 
 __global__ void __launch_bounds__(kThreads) occlusion_kernel(Args a) {
@@ -202,10 +169,12 @@ __global__ void __launch_bounds__(kThreads) occlusion_kernel(Args a) {
   const float x = a.xf[t], y = a.yf[t], z = a.zfrag[t];
 
   const float* m = a.i_vpmv;
-  const float w = row(m, 3, x, y, z);
-  const float world[3] = {row(m, 0, x, y, z) / w, row(m, 1, x, y, z) / w, row(m, 2, x, y, z) / w};
-  const float fw = row(k.sm, 3, x, y, z);
-  const float fval = __ldg(a.plane + plane_index(a, row(k.sm, 0, x, y, z) / fw, row(k.sm, 1, x, y, z) / fw));
+  const float w = mat4_row(m, 3, x, y, z);
+  const float world[3] = {mat4_row(m, 0, x, y, z) / w, mat4_row(m, 1, x, y, z) / w,
+                          mat4_row(m, 2, x, y, z) / w};
+  const float fw = mat4_row(k.sm, 3, x, y, z);
+  const float fval =
+      __ldg(a.plane + plane_index(a, mat4_row(k.sm, 0, x, y, z) / fw, mat4_row(k.sm, 1, x, y, z) / fw));
 
   float rot[9];
   for (int i = 0; i < 9; ++i) rot[i] = k.rot[i];
@@ -220,8 +189,9 @@ __global__ void __launch_bounds__(kThreads) occlusion_kernel(Args a) {
       const float step = ((rot[3 * c] * d[0] + rot[3 * c + 1] * d[1]) + rot[3 * c + 2] * d[2]) * a.step;
       p[c] = world[c] + step;
     }
-    const float sw = row(s, 3, p[0], p[1], p[2]);
-    const float sval = __ldg(a.plane + plane_index(a, row(s, 0, p[0], p[1], p[2]) / sw, row(s, 1, p[0], p[1], p[2]) / sw));
+    const float sw = mat4_row(s, 3, p[0], p[1], p[2]);
+    const float sval = __ldg(a.plane + plane_index(a, mat4_row(s, 0, p[0], p[1], p[2]) / sw,
+                                                   mat4_row(s, 1, p[0], p[1], p[2]) / sw));
     const bool occluded = (sval - a.threshold) > fval;
     float strength = (sval - fval) * a.inv_depth_scale;  // torch's (sval - fval) / depth_scale on the card
     strength = strength > 1.0f ? 1.0f : strength;  // clamp(max=1), NaN kept

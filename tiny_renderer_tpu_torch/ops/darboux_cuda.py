@@ -40,7 +40,7 @@ EDGES = ("a1", "b1", "c1", "a2", "b2", "c2", "cz")
 VARYINGS = (("uv", (3, 2)), ("t_norm", (3, 3)), ("row0n", (3,)), ("row1n", (3,)), ("du", (2,)), ("dv", (2,)))
 
 _INT_MAX = 2**31 - 1
-_IDX_BYTES = {torch.int32: 4, torch.int16: 2}
+IDX_BYTES = {torch.int32: 4, torch.int16: 2}  # strips' dtypes, by the bytes of an id
 
 
 def reset_launches():
@@ -71,17 +71,18 @@ def _library():
     return lib
 
 
-def _check(setup, strips, cids, acc, plane, light):
-    """Raise unless the arguments are what the kernel reads, on one CUDA
-    device (see chunk_body)."""
-    dev = strips.device
+def check_chunk(setup, strips, cids, acc):
+    """Raise unless the edge coefficients of `setup`, the strip plane, the
+    slot ids and the accumulator are laid out as a chunk-body kernel reads
+    them (see chunk_body; the devices are each wrapper's to check).
+    Returns the number of triangles."""
     T = setup["cz"].shape[0]
     for key in EDGES:
         t = setup[key]
         if t.dtype != torch.int32 or tuple(t.shape) != (T,) or not t.is_contiguous():
             raise ValueError(f"{key}: expected a contiguous ({T},) int32 tensor, got "
                              f"{'' if t.is_contiguous() else 'a non-contiguous '}{tuple(t.shape)} {t.dtype}")
-    if strips.dtype not in _IDX_BYTES or strips.dim() != 2 or not strips.is_contiguous():
+    if strips.dtype not in IDX_BYTES or strips.dim() != 2 or not strips.is_contiguous():
         raise ValueError(f"strips: expected a contiguous (strips, strip_len) int32 or int16 tensor, got "
                          f"{tuple(strips.shape)} {strips.dtype}")
     n_strips, strip_len = strips.shape
@@ -92,6 +93,15 @@ def _check(setup, strips, cids, acc, plane, light):
                                                                          (torch.uint8, (*words, 3))):
         raise ValueError(f"acc: expected a contiguous {words} int32 or {(*words, 3)} uint8 tensor, got "
                          f"{tuple(acc.shape)} {acc.dtype}")
+    return T
+
+
+def _check(setup, strips, cids, acc, plane, light):
+    """Raise unless the arguments are what the kernel reads, on one CUDA
+    device (see chunk_body)."""
+    dev = strips.device
+    T = check_chunk(setup, strips, cids, acc)
+    strip_len = strips.shape[1]
     if plane.dtype != torch.int32 or plane.dim() != 3 or plane.shape[2] != 2 or not plane.is_contiguous():
         raise ValueError(f"plane: expected a contiguous (h, w, 2) int32 packed plane, got "
                          f"{tuple(plane.shape)} {plane.dtype}")
@@ -127,7 +137,7 @@ def chunk_body(setup, strips, cids, acc, plane, tile, light, *, width, pixels, y
     with torch.cuda.device(strips.device):
         err = lib.darboux_chunk_body(
             *(setup[key].data_ptr() for key in EDGES), *(setup[key].data_ptr() for key, _ in VARYINGS),
-            strips.data_ptr(), _IDX_BYTES[strips.dtype], cids.data_ptr(), cids.numel(), n_strips, strip_len,
+            strips.data_ptr(), IDX_BYTES[strips.dtype], cids.data_ptr(), cids.numel(), n_strips, strip_len,
             pixels, width, y_offset, plane.data_ptr(), w, h, tile, light.data_ptr(), acc.data_ptr(),
             int(acc.dtype == torch.int32), torch.cuda.current_stream(strips.device).cuda_stream)
     if err:

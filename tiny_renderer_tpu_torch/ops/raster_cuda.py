@@ -13,11 +13,11 @@ functions.
 
 The kernels are built at first use with nvcc into ``_build/`` beside the
 package, as a plain-C shared library loaded with ctypes, and cached there by
-a hash of the source and the flags.  A kernel block covers one SUBTILE of a
-bin tile and walks only the 4x8 rects a candidate may cover; ``cull_masks``
-models that cull in plain torch (for accounting and tests; chip_smoke.py
-holds it to the kernel's own masks from the probe build, ``build(probe=
-True)``).  ``LAUNCHES`` counts kernel launches by mode: ``raster`` (every K1
+a hash of the source, the headers it includes and the flags.  A kernel block
+covers one SUBTILE of a bin tile and walks only the 4x8 rects a candidate
+may cover; ``cull_masks`` models that cull in plain torch (for accounting
+and tests; chip_smoke.py holds it to the kernel's own masks from the probe
+build, ``build(probe=True)``).  ``LAUNCHES`` counts kernel launches by mode: ``raster`` (every K1
 launch), ``fused`` (every K2 launch), ``gathered``, ``int16``, ``strips``,
 ``planes`` (the launches that ran that mode), and ``offset`` and
 ``fused_offset`` (the K1 and K2 launches at a nonzero row_tile_offset: the
@@ -33,6 +33,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import subprocess
 import tempfile
 import threading
@@ -111,13 +112,18 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False, probe: bool = False, source: Path = SOURCE):
-    """Compile csrc/raster.cu (or another plain-C CUDA `source`) into
-    BUILD_DIR (unless an up-to-date build is cached there, or `force`); with
+    """Compile csrc/raster.cu (or another plain-C CUDA `source`, with the
+    headers of its directory that it includes) into BUILD_DIR (unless an
+    up-to-date build is cached there, or `force`); with
     `probe`, its probe build (-DRASTER_PROBE, see the note in raster.cu).
     Returns (library path, seconds spent compiling, nvcc's output).  Raises
     RuntimeError with nvcc's stderr if the build fails."""
     flags = NVCC_FLAGS + (("-DRASTER_PROBE",) if probe else ())
-    digest = hashlib.sha256(source.read_bytes() + "\0".join(flags).encode()).hexdigest()[:16]
+    text = source.read_bytes()
+    # The headers beside it that it includes ("name") are part of the source.
+    headers = b"".join((source.parent / h.decode()).read_bytes()
+                       for h in re.findall(rb'^#include "([^"]+)"', text, re.MULTILINE))
+    digest = hashlib.sha256(text + headers + "\0".join(flags).encode()).hexdigest()[:16]
     name = f"{source.stem}{'_probe' if probe else ''}_{digest}"
     lib, log = BUILD_DIR / f"{name}.so", BUILD_DIR / f"{name}.log"
     if lib.exists() and not force:

@@ -78,9 +78,8 @@ PIPELINES = {
     "specular": PipelineSpec("specular", (), shaders.shade_specular),
     "darboux": PipelineSpec("darboux", ("darboux",), shaders.shade_darboux,
                             fused_body=shaders.darboux_fused_body),
-    "shadow": PipelineSpec(
-        "shadow", ("vertex_intensity",), shaders.shade_shadow, two_pass=True
-    ),
+    "shadow": PipelineSpec("shadow", ("vertex_intensity",), shaders.shade_shadow, two_pass=True,
+                           fused_body=shaders.shadow_fused_body),
     "occlusion": PipelineSpec("occlusion", (), shaders.shade_occlusion, two_pass=True),
 }
 
@@ -516,12 +515,20 @@ def _shadow_for_shade(shadow_z, spec, config):
 # The strip shade's chunks: the slots are shaded in chunks that end at
 # these fractions of the slot count (each end rounded up to strip_batch),
 # each chunk run only where the covered count reaches into it.  Chosen on
-# the H100 (PERF.md; scripts/torch_shade_device_time.py): a chunk
-# body costs a fixed ~0.3 ms (shadow; ~0.5 occlusion) of some 190-450
-# small kernels besides ~19 ns (~50) per slot, so a frame at the
-# stand-ins' ~12% strip coverage runs one body of an eighth of the slots,
-# one up to half the screen runs two, and a frame covering every strip
-# pays two fixed costs more than one chunk of every slot would.
+# the H100 (PERF.md; scripts/torch_shade_device_time.py) when every chunk
+# body was some 190-450 small kernels, a fixed ~0.3 ms (shadow; ~0.5
+# occlusion) besides ~19 ns (~50) per slot: a frame at the stand-ins' ~12%
+# strip coverage runs one body of an eighth of the slots, one up to half
+# the screen runs two, and a frame covering every strip pays two fixed
+# costs more than one chunk of every slot would.  Measured since (the same
+# script, PERF.md §6-§7): the darboux and shadow bodies are one kernel
+# each, and their shade replayed alone takes 0.089 ms at the stand-ins'
+# coverage under these ends against 0.084-0.086 as one chunk of every slot
+# (0.106-0.115 against 0.095-0.103 covering every strip), so the ends cost
+# them a few microseconds; the occlusion and specular bodies are still
+# ATen kernels, and the ends halve their shade at that coverage (0.265
+# against 0.538 ms, 0.452 against 0.967).  The ends have not been chosen
+# again.
 SHADE_CHUNK_ENDS = (1 / 8, 1 / 2, 1)
 
 
@@ -567,9 +574,10 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
     compute_varyings (the kernel's interpolation is expression-identical).
     The writeback is one packed RGB word per pixel (config.strip_pack_words)
     or the u8 triples.  Where the pipeline's spec has a fused_body that
-    applies (darboux on CUDA tensors with its packed plane), each chunk
-    body is that one kernel launch, equal to the torch body.  Returns the
-    (H, W, 3) u8 frame, uncovered pixels black.
+    applies (darboux and shadow on CUDA tensors with their packed planes),
+    each chunk body is that one kernel launch, equal to the torch body; it
+    reads the setup columns, not the varying planes.  Returns the (H, W, 3)
+    u8 frame, uncovered pixels black.
     """
     spec = PIPELINES[pipeline]
     H, W = idx.shape
@@ -608,7 +616,8 @@ def _shade_strips(setup, idx, pipeline, uniforms, textures, config, shadow_z,
 
     def chunk(cids):
         if kernel_body is not None:
-            kernel_body(setup, strips, cids, acc, uniforms, width=W, pixels=HW, y_offset=y_offset)
+            kernel_body(setup, strips, cids, acc, uniforms, width=W, pixels=HW, y_offset=y_offset, config=config,
+                        shadow=shadow_z)
             return
         safe = cids.clamp(max=n_strips - 1)
         sidx = strips[safe]  # (chunk, SL) winning-triangle ids

@@ -23,7 +23,7 @@ import numpy as np
 import torch
 
 from ..ops import mathlib as ml
-from ..ops import darboux_cuda, occlusion_cuda
+from ..ops import darboux_cuda, occlusion_cuda, shadow_cuda
 from ..utils import timing
 from . import graphs
 
@@ -471,16 +471,17 @@ def darboux_fused_body(textures, device):
     of ops/darboux_cuda.py, where it applies: on a CUDA device, with the
     packed plane of the pipeline's maps (maps of mixed dimensions have
     none).  Returns body(setup, strips, cids, acc, uniforms, *, width,
-    pixels, y_offset), which does what frame._shade_strips' torch body does
-    for the slots `cids` (darboux_cuda.chunk_body), or None where the torch
-    body runs.  Traced, the body is the stage `darboux` of its frame, the
-    gather and varyings included, and counts the frame's covered pixels, as
-    shade_darboux does."""
+    pixels, y_offset, config, shadow), which does what frame._shade_strips'
+    torch body does for the slots `cids` (darboux_cuda.chunk_body), or None
+    where the torch body runs.  A one-pass body, it takes and ignores the
+    frame's config and shadow map.  Traced, the body is the stage `darboux`
+    of its frame, the gather and varyings included, and counts the frame's
+    covered pixels, as shade_darboux does."""
     pk, tile = _find_pk(textures, PIPELINE_MAPS["darboux"])
     if device.type != "cuda" or pk is None:
         return None
 
-    def body(setup, strips, cids, acc, uniforms, *, width, pixels, y_offset):
+    def body(setup, strips, cids, acc, uniforms, *, width, pixels, y_offset, config=None, shadow=None):
         timing.mark("shade")
         timing.shade_pixels("darboux.pixels")
         darboux_cuda.chunk_body(setup, strips, cids, acc, pk, tile, uniforms["t_light_direction"],
@@ -507,6 +508,32 @@ def shade_shadow(frag, uniforms, textures, config):
     )
     color = sample_frag(textures, frag, ("texture",))["texture"]
     return ml.color_blend(color, _color(BLACK, color.device), frag["intensity"] * shadow_coef)
+
+
+def shadow_fused_body(textures, device):
+    """The shadow pipeline's strip chunk body as one launch of the kernel of
+    ops/shadow_cuda.py, where it applies: on a CUDA device, with the packed
+    plane of the texture.  Returns body(setup, strips, cids, acc, uniforms,
+    *, width, pixels, y_offset, config, shadow), which does what
+    frame._shade_strips' torch body does for the slots `cids` with the
+    frame's config and its shadow map `shadow` as the shade reads it
+    (shadow_cuda.chunk_body), or None where the torch body runs.  It sets
+    no stage mark and counts no pixels, as shade_shadow does not."""
+    pk, tile = _find_pk(textures, PIPELINE_MAPS["shadow"])
+    if device.type != "cuda" or pk is None:
+        return None
+
+    def body(setup, strips, cids, acc, uniforms, *, width, pixels, y_offset, config, shadow):
+        # The columns are views of the setup kernel's buffers, contiguous;
+        # vertex.setup_reference's zv, on CUDA tensors too, is not.
+        columns = {key: setup[key].contiguous() for key in shadow_cuda.COLUMNS}
+        shadow_cuda.chunk_body(
+            columns, strips, cids, acc, pk, tile, shadow, plane_tile_effective(config, shadow.shape),
+            uniforms["shadow_matrix"].contiguous(), uniforms["i_vpmv"].contiguous(),
+            bias=ml.f32(config.shadow_bias), dim=ml.f32(config.shadow_dim), shadow_width=config.width,
+            width=width, pixels=pixels, y_offset=y_offset)
+
+    return body
 
 
 def occlusion_directions(n, device):

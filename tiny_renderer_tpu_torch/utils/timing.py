@@ -505,8 +505,8 @@ def snapshot() -> dict:
     (while the tracer is on, with graph.pool_bytes: the pools of the
     captured graphs alive), the drained device frames, the spans and frames
     dropped, and copies of raster_cuda.LAUNCHES, vertex_cuda.LAUNCHES,
-    occlusion_cuda.LAUNCHES and darboux_cuda.LAUNCHES."""
-    from ..ops import darboux_cuda, occlusion_cuda, raster_cuda, vertex_cuda
+    occlusion_cuda.LAUNCHES, darboux_cuda.LAUNCHES and shadow_cuda.LAUNCHES."""
+    from ..ops import darboux_cuda, occlusion_cuda, raster_cuda, shadow_cuda, vertex_cuda
     from ..pipelines import graphs
 
     drain(everything=True)
@@ -529,6 +529,7 @@ def snapshot() -> dict:
         "vertex_launches": dict(vertex_cuda.LAUNCHES),
         "occlusion_launches": dict(occlusion_cuda.LAUNCHES),
         "darboux_launches": dict(darboux_cuda.LAUNCHES),
+        "shadow_launches": dict(shadow_cuda.LAUNCHES),
     }
 
 
