@@ -1931,7 +1931,9 @@ def traced(run, dev):
 TRACE_CELL = "diablo-shadow.orbit-burst"
 TRACE_SEED = 2_147_500_431
 TRACE_FRAMES = 8
-TRACE_MARKS = {"scene.render": 7, "scene.render_sequence": 8}
+TRACE_BINNING = ["binning.keys", "binning.sort", "binning.csr", "binning.records", "binning"]
+TRACE_LABELS = ["start", "vertex", *TRACE_BINNING, "raster", *TRACE_BINNING, "raster", "shade"]
+TRACE_MARKS = {"scene.render": len(TRACE_LABELS), "scene.render_sequence": len(TRACE_LABELS) + 1}
 
 
 def trace_phase(dev, smi):
@@ -1941,7 +1943,8 @@ def trace_phase(dev, smi):
     render_sequence of the mix's frames_per_call, first with the tracer
     off, then on.  The frames byte-equal; the drained frames numbered in
     turn, none dropped, each under the call that issued it with its marks'
-    labels; each frame's stamped covered count equal to the count the strip
+    labels in order (TRACE_LABELS; a burst frame's closing shade after
+    them), the clock's error within 25 us; each frame's stamped covered count equal to the count the strip
     shade gives eagerly (render_frame and the eager burst) at the same pose;
     torch.profiler over a traced frame and a traced burst counts
     TRACE_MARKS mark kernels a frame and holds the program's spans as host
@@ -1996,8 +1999,11 @@ def trace_phase(dev, smi):
     issuers = [roots.get(fr["call"]) for fr in frames]
     check(issuers == ["scene.render"] * TRACE_FRAMES + ["scene.render_sequence"] * n_burst,
           f"frames credited to {collections.Counter(issuers)}")
-    check(all(len(fr["labels"]) == TRACE_MARKS[who] and fr["stamps_ns"] == sorted(fr["stamps_ns"])
-              for fr, who in zip(frames, issuers)), "labels or stamps out of order")
+    check(all(fr["labels"] == TRACE_LABELS + ["shade"] * (who == "scene.render_sequence")
+              and fr["stamps_ns"] == sorted(fr["stamps_ns"]) for fr, who in zip(frames, issuers)),
+          f"labels or stamps out of order: {[fr['labels'] for fr in frames[:1]]}")
+    clock = snap["clock"][str(dev)]
+    check(0 <= clock["error_ns"] <= 25_000, f"the clock's calibration: {clock}")
     views = [torch.from_numpy(np.stack([light, look_from, [0.0, 0.0, 0.0], [0.0, 1.0, 0.0]]).astype(np.float32))
              .to(dev) for light, look_from in poses]
     want = eager_counts(lambda: [render_frame(sc._geom, sc._textures, *v, pipeline=sc.pipeline_name,
@@ -2025,14 +2031,14 @@ def trace_phase(dev, smi):
           and burst_ranges >= {"scene.render_sequence", "sequence.issue", "sequence.copy", "graph.replay"},
           f"the program's spans in the profiler's trace: {sorted(ranges | burst_ranges)}")
     stages = {k: float(np.median([fr["stages"][k] for fr in frames[TRACE_FRAMES:]]))
-              for k in ("vertex", "binning", "raster", "shade")}
+              for k in ("vertex", "binning", *TRACE_BINNING[:-1], "raster", "shade")}
     phase("trace", f"{TRACE_CELL} (seed {TRACE_SEED}): {TRACE_FRAMES} Scene.render frames and a {n_burst}-frame "
           f"render_sequence byte-equal with the tracer off and on; frames {first}..{first + len(frames) - 1} "
           f"drained in turn, 0 dropped; covered counts {min(got)}..{max(got)} equal to the eager shade's "
           f"(chunks {sorted(collections.Counter(fr['chunks'] for fr in frames).items())}); profiler: "
           f"{per_frame:.0f} mark kernels a frame, {per_burst:.0f} a burst frame, the spans as host ranges; "
           f"burst stages (median device ms) " + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
-          + f"  [{smi}]")
+          + f"; clock error {clock['error_ns']} ns, drift {clock['drift_ppm']:.3f} ppm  [{smi}]")
 
 
 # The sequence phase: the burst cells' scenes, SEQ_CALLS back-to-back

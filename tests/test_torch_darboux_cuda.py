@@ -27,7 +27,9 @@ from tiny_renderer_tpu_torch.utils import timing
 
 CFG = RenderConfig(width=64, height=32)
 VIEW = ([0.4, 0.2, 0.9], [0.2, 0.1, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-DARBOUX_MARKS = ["vertex", "darboux_setup", "vertex", "binning", "raster", "shade", "darboux", "shade"]
+# bin_triangles' four steps, then the caller's stage mark.
+BINNING = ["binning.keys", "binning.sort", "binning.csr", "binning.records", "binning"]
+DARBOUX_MARKS = ["vertex", "darboux_setup", "vertex", *BINNING, "raster", "shade", "darboux", "shade"]
 
 
 @pytest.fixture(autouse=True)
@@ -228,7 +230,8 @@ def test_shade_strips_hands_each_chunk_to_the_body(strip_batch, bodies, monkeypa
         timing.disable()
         timing.snapshot()
     assert not frame.any() and len(calls) == bodies
-    assert fr["labels"] == DARBOUX_MARKS[:5] + DARBOUX_MARKS[5:7] * bodies + ["shade"]
+    b = DARBOUX_MARKS.index("raster") + 1  # the first body's first mark
+    assert fr["labels"] == DARBOUX_MARKS[:b] + DARBOUX_MARKS[b:b + 2] * bodies + ["shade"]
     rc = s.config.resolve("darboux")
     n_strips = rc.width * rc.height // rc.strip_len
     slots = -(-n_strips // rc.strip_batch) * rc.strip_batch

@@ -29,7 +29,9 @@ from tiny_renderer_tpu_torch.utils import timing
 
 CFG = RenderConfig(width=64, height=32)
 VIEW = ([0.4, 0.2, 0.9], [0.2, 0.1, 0.98], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])
-SHADOW_MARKS = ["vertex", "binning", "raster", "binning", "raster", "shade"]
+# bin_triangles' four steps, then the caller's stage mark.
+BINNING = ["binning.keys", "binning.sort", "binning.csr", "binning.records", "binning"]
+SHADOW_MARKS = ["vertex", *BINNING, "raster", *BINNING, "raster", "shade"]
 
 
 @pytest.fixture(autouse=True)

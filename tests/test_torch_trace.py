@@ -13,8 +13,12 @@ frame under and of one over the first chunk's end (12.5% of the strips at
 64x64 and strip_batch 8); the ring's bookkeeping on the mark kernel's plain
 version (stages, spans, chunks, call ids, overwritten frames dropped); a
 mark whose body did not run reads absent, not stale; a snapshot taken after
-the tracer is off drains what it issued while on; an occlusion frame's
-probe stage and covered pixels, eagerly and under marks on the CPU ring;
+the tracer is off drains what it issued while on; binning's step marks
+add into their stage, which spans the stamps it spanned without them; the
+clock calibration against a fake device clock; the gaps between frames
+split over the host's spans, per snapshot, and report()'s lines for them;
+an occlusion frame's probe stage and covered pixels, eagerly and under
+marks on the CPU ring;
 a darboux frame's darboux_setup and darboux stages and covered pixels
 likewise, a skipped chunk body's darboux marks absent, and drained frames'
 pixels in their shade's counter (the shadow frame's marks unchanged); a
@@ -28,9 +32,11 @@ so there: ``python -m pytest tests/test_torch_trace.py --noconftest -m card``):
 frames bit-identical with the tracer on and off through Scene.render and
 render_sequence; the frames numbered in turn, the stamps monotone in each
 frame and its span within EVENT_EXTRA_MS of CUDA events around the same
-replay; a burst traced by torch.profiler with the tracer off
-holds the kernels it held before the tracer ran, the traced graph those and
-one mark kernel a mark; a traced occlusion burst's probe stage and covered
+replay; two traced 60-frame sequences on the host's clock (the clock's
+error within CLOCK_ERROR_NS, each frame inside its replay and copy spans,
+gaps and frame spans summing to the stamps' stretch); a burst traced by
+torch.profiler with the tracer off holds the kernels it held before the
+tracer ran, the traced graph those and one mark kernel a mark; a traced occlusion burst's probe stage and covered
 pixels, beside the shadow frame's unchanged marks; a traced darboux burst's
 two stages and covered pixels; a traced specular burst's stage and covered
 pixels, its frames equal to the untraced burst's.
@@ -38,7 +44,10 @@ pixels, its frames equal to the untraced burst's.
 
 import collections
 import json
+import math
+import re
 import threading
+import time
 
 import numpy as np
 import pytest
@@ -52,7 +61,9 @@ from tiny_renderer_tpu_torch.pipelines import graphs
 from tiny_renderer_tpu_torch.pipelines.graphs import GraphCache, signature
 from tiny_renderer_tpu_torch.utils import timing
 
-FRAME_MARKS = ["start", "vertex", "binning", "raster", "binning", "raster", "shade"]
+# bin_triangles' four steps, then the caller's stage mark.
+BINNING = ["binning.keys", "binning.sort", "binning.csr", "binning.records", "binning"]
+FRAME_MARKS = ["start", "vertex", *BINNING, "raster", *BINNING, "raster", "shade"]
 CAMS, LIGS = [0.1, 0.25, 0.4], [-0.2, -0.3, -0.45]
 
 
@@ -153,7 +164,8 @@ def test_public_calls_record_their_spans(tracer, standin):
     assert tree(fetch) == sorted([("fetch.wait", "scene.fetch"), ("fetch.copy", "scene.fetch")])
     assert tree(seq) == sorted([("sequence.issue", "scene.render_sequence"),
                                 ("sequence.wait", "scene.render_sequence"),
-                                ("sequence.copy", "scene.render_sequence")]
+                                ("sequence.copy", "scene.render_sequence"),
+                                ("sequence.alloc", "sequence.issue"), ("sequence.angles", "sequence.issue")]
                                + [("graph.replay", "sequence.issue")] * len(CAMS))
     assert len({sp["call"] for sp in spans}) == 4
     counters = snap["counters"]
@@ -251,7 +263,9 @@ def test_ring_bookkeeping(tracer):
     ring = timing._Ring(torch.device("cpu"), frames=4)
     marks = timing.FrameMarks(ring)
     marks.labels, marks.chunk_starts = list(FRAME_MARKS), (0, 32, 128)
-    steps = [0, 1000, 200, 300, 100, 400, 500]  # ns from the previous mark
+    # ns from the previous mark: start, vertex, the light pass's binning
+    # steps and stage mark, raster, the camera pass's, raster, shade.
+    steps = [0, 1000, 40, 60, 30, 50, 20, 300, 20, 30, 10, 30, 10, 400, 500]
 
     def replay(k, covered):
         def launch():
@@ -272,8 +286,10 @@ def test_ring_bookkeeping(tracer):
     assert dropped == 2 and len(got) == 4 and ring.drain() == ([], 0)
     for fr, call, covered, chunks in zip(got, calls[2:], (0, 31, 32, 200), (0, 1, 1, 3)):
         assert fr["call"] == call and fr["labels"] == FRAME_MARKS
-        assert fr["stages"] == pytest.approx({"vertex": 1e-3, "binning": 3e-4, "raster": 7e-4, "shade": 5e-4})
-        assert fr["span_ms"] == pytest.approx(sum(fr["stages"].values()))
+        assert fr["stages"] == pytest.approx({"vertex": 1e-3, "binning": 3e-4, "raster": 7e-4, "shade": 5e-4,
+                                              "binning.keys": 6e-5, "binning.sort": 9e-5, "binning.csr": 4e-5,
+                                              "binning.records": 8e-5})
+        assert fr["span_ms"] == pytest.approx(sum(v for k, v in fr["stages"].items() if "." not in k))
         assert fr["covered"] == covered and fr["chunks"] == chunks
         assert fr["stamps_ns"] == sorted(fr["stamps_ns"])
     # A frame without a covered count (no strip shade) reads none.
@@ -358,6 +374,136 @@ def test_marks_that_did_not_run_read_absent(tracer):
     assert fr["span_ms"] == pytest.approx(6e-4) and fr["pixels"] == 50
 
 
+OCCLUSION_MARKS = ["vertex", *BINNING, "raster", *BINNING, "raster", "shade", "probe", "shade"]
+
+
+def test_steps_add_into_their_stage(tracer):
+    """A frame with binning's step marks against the same frame without
+    them (the stamps of the marks both have equal): every stage but the
+    steps reads the same, binning the same stamp interval, and the steps
+    sum to it less the piece from the last step to the stage's own mark."""
+    rng = np.random.default_rng(3)
+    stamps = np.cumsum(rng.integers(100, 5_000, size=len(FRAME_MARKS))).tolist()
+    stepless = [k for k, label in enumerate(FRAME_MARKS) if "." not in label]
+
+    def drained(labels, times):
+        ring = timing._Ring(torch.device("cpu"), frames=2)
+        marks = timing.FrameMarks(ring)
+        marks.labels = list(labels)
+        ring.issue(marks, lambda: [timing.mark_reference(ring.words, slot, slot == 0, now_ns=t)
+                                   for slot, t in enumerate(times)])
+        (fr,), _ = ring.drain()
+        return fr
+
+    fr = drained(FRAME_MARKS, stamps)
+    before = drained([FRAME_MARKS[k] for k in stepless], [stamps[k] for k in stepless])
+    assert {k: v for k, v in fr["stages"].items() if "." not in k} == pytest.approx(before["stages"])
+    assert fr["span_ms"] == before["span_ms"]
+    steps = sum(v for k, v in fr["stages"].items() if k.startswith("binning."))
+    tails = [stamps[k] - stamps[k - 1] for k, label in enumerate(FRAME_MARKS) if label == "binning"]
+    assert fr["stages"]["binning"] == pytest.approx(steps + sum(tails) / 1e6)
+    spanned = sum(stamps[k] - stamps[k - 5] for k, label in enumerate(FRAME_MARKS) if label == "binning")
+    assert fr["stages"]["binning"] == pytest.approx(spanned / 1e6)
+
+
+def test_calibration_recovers_a_fake_clock(tracer):
+    """calibrate() against a device clock a known offset from a fake host
+    clock, read at a random point of each round trip of random length: the
+    offset within the reported error, the error half the shortest round
+    trip; the clock over a period and stamps moved onto the host's clock;
+    a CPU ring's offset and error 0."""
+    rng = np.random.default_rng(11)
+    offset = 1_234_567_891
+    now, trips, stamped = [50_000], [], []
+
+    def stamp():
+        before, after = (int(x) for x in rng.integers(200, 40_000, size=2))
+        now[0] += before
+        stamped.append(now[0] + offset)
+        now[0] += after
+        trips.append(before + after)
+
+    got = timing.calibrate(stamp, lambda: stamped[-1], clock=lambda: now[0], rounds=16)
+    assert len(trips) == 16 and got["error_ns"] == -(-min(trips) // 2)
+    assert abs(got["offset_ns"] - offset) <= got["error_ns"]
+    start = {"offset_ns": 1_000, "error_ns": 5, "host_ns": 0}
+    end = {"offset_ns": 1_100, "error_ns": 7, "host_ns": 1_000_000}
+    period = timing.clock_period(start, end)
+    assert period["error_ns"] == 7 and period["drift_ppm"] == pytest.approx(100.0)
+    assert timing.to_host([1_000, None, 500_000 + 1_050, 1_001_100], start, end) == [0, None, 500_000, 1_000_000]
+    cpu = timing._Ring(torch.device("cpu"), frames=2).calibrate()
+    assert cpu["offset_ns"] == cpu["error_ns"] == 0
+
+
+def gap_frame(number, call, first, last):
+    return {"frame": number, "call": call, "device": "cpu", "stamps_ns": [first, None, last],
+            "host_ns": [first, None, last]}
+
+
+def test_gaps_split_over_host_spans(tracer):
+    """Gaps between synthetic frames: one within a call, one at a call
+    boundary, none after a frame the ring dropped; each gap's interval
+    split over the innermost span open on any thread, "host" where none."""
+    frames = [gap_frame(1, 1, 1_000, 1_500), gap_frame(2, 1, 1_700, 2_300), gap_frame(3, 5, 3_000, 3_400),
+              gap_frame(5, 5, 3_600, 3_900)]  # frame 4 dropped
+    sp = [("scene.render_sequence", 900, 2_500, 1, None, 1), ("sequence.issue", 950, 1_600, 2, 1, 1),
+          ("graph.replay", 1_550, 1_600, 3, 2, 1), ("sequence.copy", 2_000, 2_500, 4, 1, 1),
+          ("serve.request", 2_600, 2_700, 9, None, 9),  # another thread's call
+          ("scene.render_sequence", 2_800, 3_950, 5, None, 5), ("sequence.issue", 2_850, 3_100, 6, 5, 5),
+          ("sequence.alloc", 2_850, 2_900, 7, 6, 5)]
+    spans = [{"name": n, "start_ns": a, "end_ns": b, "ms": (b - a) / 1e6, "id": i, "parent": p, "call": c}
+             for n, a, b, i, p, c in sp]
+    gaps = timing.frame_gaps(frames, spans)
+    assert [(g["after_frame"], g["call_boundary"]) for g in gaps] == [(1, False), (2, True)]
+    assert [g["ms"] for g in gaps] == pytest.approx([2e-4, 7e-4])
+    assert gaps[0]["host_ms"] == pytest.approx({"sequence.issue": 5e-5, "graph.replay": 5e-5,
+                                                "scene.render_sequence": 1e-4})
+    assert gaps[1]["host_ms"] == pytest.approx({"sequence.copy": 2e-4, "host": 2e-4, "serve.request": 1e-4,
+                                                "scene.render_sequence": 5e-5, "sequence.alloc": 5e-5,
+                                                "sequence.issue": 1e-4})
+
+
+def test_snapshot_gaps_clock_and_report(tracer, monkeypatch):
+    """Frames issued into a CPU ring under spans: each snapshot holds the
+    gaps between its own frames only (none before its first), a gap
+    within a call under that call's span, one between calls partly in
+    "host"; the frames' host stamps their stamps (offset 0), the clock's
+    offset, error and drift 0; report() prints binning's steps, both kinds
+    of gap and the clock."""
+    ring = timing._Ring(torch.device("cpu"), frames=8)
+    marks = timing.FrameMarks(ring)
+    marks.labels = ["start", "binning.keys", "binning", "shade"]
+    monkeypatch.setattr(timing, "_RINGS", {0: ring})
+    timing.enable()
+
+    def frame():
+        ring.issue(marks, lambda: [timing.mark_reference(ring.words, slot, slot == 0) for slot in range(4)])
+
+    with timing.span("scene.render_sequence"):
+        frame()
+        frame()
+    snap = timing.snapshot()
+    assert snap["clock"] == {"cpu": {"offset_ns": [0, 0], "host_ns": snap["clock"]["cpu"]["host_ns"],
+                                     "error_ns": 0, "drift_ppm": 0.0}}
+    assert all(fr["host_ns"] == fr["stamps_ns"] for fr in snap["frames"])
+    (gap,) = snap["gaps"]
+    assert not gap["call_boundary"] and set(gap["host_ms"]) <= {"scene.render_sequence", "graph.replay"}
+    for _ in range(2):
+        with timing.span("scene.render_sequence"):
+            frame()
+        time.sleep(0.002)
+    snap = timing.snapshot()
+    (gap,) = snap["gaps"]  # none between the two snapshots
+    assert gap["call_boundary"] and gap["host_ms"]["host"] >= 1.0
+    assert sum(gap["host_ms"].values()) == pytest.approx(gap["ms"], abs=1e-6)
+    text = timing.report(snap)
+    assert re.search(r"^  binning steps \(median ms\): keys [0-9.]+; of binning [0-9.]+$", text, re.M)
+    assert re.search(r"^gaps between frames at call boundaries: 1, median [0-9.]+ ms, total [0-9.]+ ms; "
+                     r"the host meanwhile \(ms\): host [0-9.]+", text, re.M)
+    assert "clock cpu: offset 0 ns, error 0 ns, drift 0.00 ppm" in text and "within a call" not in text
+    assert "within a call: 1," in timing.report({**snap, "gaps": [dict(gap, call_boundary=False)]})
+
+
 def occlusion_scene(radius=0.45, size=64):
     model = Model(mesh=make_uv_sphere(radius, 8, 10), **make_textures(16))
     s = Scene(model, "occlusion", RenderConfig(width=size, height=size), device="cpu")
@@ -382,7 +528,7 @@ def test_occlusion_probe_and_pixels_cpu(tracer):
         s.render()  # eagerly every mark writes its stamp now, as a replay would
     ring.issue(marks, lambda: None)
     (fr,), _ = ring.drain()
-    assert fr["labels"] == ["vertex", "binning", "raster", "binning", "raster", "shade", "probe", "shade"]
+    assert fr["labels"] == OCCLUSION_MARKS
     assert fr["stages"]["probe"] > 0 and fr["pixels"] == covered and fr["chunks"] == 1
     scene().render()
     assert "occlusion.pixels" not in timing.snapshot()["counters"]
@@ -396,7 +542,7 @@ def darboux_scene(radius=0.45, size=64, **knobs):
     return s
 
 
-DARBOUX_MARKS = ["vertex", "darboux_setup", "vertex", "binning", "raster", "shade", "darboux", "shade"]
+DARBOUX_MARKS = ["vertex", "darboux_setup", "vertex", *BINNING, "raster", "shade", "darboux", "shade"]
 
 
 def test_darboux_stages_and_pixels_cpu(tracer):
@@ -446,12 +592,13 @@ def test_darboux_skipped_body_reads_absent(tracer, monkeypatch):
         s.render()
     ring.issue(marks, lambda: None)
     (fr,), _ = ring.drain()
-    bodies = DARBOUX_MARKS[5:7] * 3
-    assert fr["labels"] == DARBOUX_MARKS[:5] + bodies + ["shade"]
+    b = DARBOUX_MARKS.index("raster") + 1  # the first body's first mark
+    bodies = DARBOUX_MARKS[b:b + 2] * 3
+    assert fr["labels"] == DARBOUX_MARKS[:b] + bodies + ["shade"]
     stamps = fr["stamps_ns"]
-    assert stamps[7:11] == [None] * 4 and None not in stamps[:7] + stamps[11:]
-    assert fr["stages"]["darboux"] == pytest.approx((stamps[6] - stamps[5]) / 1e6)
-    assert fr["stages"]["shade"] == pytest.approx((stamps[5] - stamps[4] + stamps[11] - stamps[6]) / 1e6)
+    assert stamps[b + 2:b + 6] == [None] * 4 and None not in stamps[:b + 2] + stamps[b + 6:]
+    assert fr["stages"]["darboux"] == pytest.approx((stamps[b + 1] - stamps[b]) / 1e6)
+    assert fr["stages"]["shade"] == pytest.approx((stamps[b] - stamps[b - 1] + stamps[b + 6] - stamps[b + 1]) / 1e6)
     assert fr["chunks"] == 1 and fr["pixels"] == covered
 
 
@@ -485,7 +632,7 @@ def specular_scene(radius=0.45, size=64, **knobs):
     return s
 
 
-SPECULAR_MARKS = ["vertex", "binning", "raster", "shade", "specular", "shade"]
+SPECULAR_MARKS = ["vertex", *BINNING, "raster", "shade", "specular", "shade"]
 
 
 def test_specular_stage_and_pixels_cpu(tracer):
@@ -537,20 +684,20 @@ def test_specular_skipped_body_reads_absent(tracer, monkeypatch):
         s.render()
     ring.issue(marks, lambda: None)
     (fr,), _ = ring.drain()
-    bodies = SPECULAR_MARKS[3:5] * 3
-    assert fr["labels"] == SPECULAR_MARKS[:3] + bodies + ["shade"]
+    b = SPECULAR_MARKS.index("raster") + 1  # the first body's first mark
+    bodies = SPECULAR_MARKS[b:b + 2] * 3
+    assert fr["labels"] == SPECULAR_MARKS[:b] + bodies + ["shade"]
     stamps = fr["stamps_ns"]
-    assert stamps[5:9] == [None] * 4 and None not in stamps[:5] + stamps[9:]
-    assert fr["stages"]["specular"] == pytest.approx((stamps[4] - stamps[3]) / 1e6)
-    assert fr["stages"]["shade"] == pytest.approx((stamps[3] - stamps[2] + stamps[9] - stamps[4]) / 1e6)
+    assert stamps[b + 2:b + 6] == [None] * 4 and None not in stamps[:b + 2] + stamps[b + 6:]
+    assert fr["stages"]["specular"] == pytest.approx((stamps[b + 1] - stamps[b]) / 1e6)
+    assert fr["stages"]["shade"] == pytest.approx((stamps[b] - stamps[b - 1] + stamps[b + 6] - stamps[b + 1]) / 1e6)
     assert fr["chunks"] == 1 and fr["pixels"] == covered
 
 
 @pytest.mark.parametrize("name, make, labels, counter", [
     ("shadow", scene, FRAME_MARKS[1:], None),
     ("darboux", darboux_scene, DARBOUX_MARKS, "darboux.pixels"),
-    ("occlusion", occlusion_scene,
-     ["vertex", "binning", "raster", "binning", "raster", "shade", "probe", "shade"], "occlusion.pixels"),
+    ("occlusion", occlusion_scene, OCCLUSION_MARKS, "occlusion.pixels"),
     ("specular", specular_scene, SPECULAR_MARKS, "specular.pixels"),
 ], ids=["shadow", "darboux", "occlusion", "specular"])
 def test_each_pipeline_marks_its_own_stages(tracer, monkeypatch, name, make, labels, counter):
@@ -685,6 +832,52 @@ def test_card_frames_equal_and_stamps(card, tracer):
         assert EVENT_EXTRA_MS[0] <= extra <= EVENT_EXTRA_MS[1], (a.elapsed_time(b), fr["span_ms"])
 
 
+# The most a card's clock calibration may be off by (half its shortest
+# round trip of a mark and a synchronize).
+CLOCK_ERROR_NS = 25_000
+
+
+@pytest.mark.card
+def test_card_sequence_on_the_host_clock(card, tracer):
+    """Two traced 60-frame render_sequence calls after the one that
+    captures the graph: the clock's error within CLOCK_ERROR_NS and its
+    drift a number; the k-th frame of a call starts on the host's clock no
+    earlier than the call's k-th graph.replay span less the error, and
+    ends no later than the call's sequence.copy span plus it; the gaps
+    (one at the call boundary) and the frames' spans sum to the ring's
+    first-to-last stamp."""
+    s = card_scene(card)
+    cams, ligs = np.linspace(0.0, 1.0, 60), np.linspace(0.5, -0.5, 60)
+    timing.enable()
+    s.render_sequence(cams, ligs)  # captures the traced burst graph
+    timing.snapshot()
+    for _ in range(2):
+        s.render_sequence(cams, ligs)
+    snap = timing.snapshot()
+    timing.disable()
+    frames, gaps = snap["frames"], snap["gaps"]
+    assert len(frames) == 120 and snap["dropped"] == {"spans": 0, "frames": 0}
+    clock = snap["clock"][str(card)]
+    err = clock["error_ns"]
+    assert 0 <= err <= CLOCK_ERROR_NS and math.isfinite(clock["drift_ppm"]), clock
+    spans = collections.defaultdict(list)
+    for sp in sorted(snap["spans"], key=lambda sp: sp["start_ns"]):
+        spans[sp["call"], sp["name"]].append(sp)
+    issued = collections.Counter()
+    for fr in frames:
+        replay = spans[fr["call"], "graph.replay"][issued[fr["call"]]]
+        issued[fr["call"]] += 1
+        (copy,) = spans[fr["call"], "sequence.copy"]
+        host = [t for t in fr["host_ns"] if t is not None]
+        assert host[0] >= replay["start_ns"] - err, (host[0] - replay["start_ns"], err)
+        assert host[-1] <= copy["end_ns"] + err, (host[-1] - copy["end_ns"], err)
+    assert list(issued.values()) == [60, 60]
+    assert len(gaps) == 119 and [g["after_frame"] for g in gaps if g["call_boundary"]] == [frames[59]["frame"]]
+    first, last = frames[0]["stamps_ns"][0], [t for t in frames[-1]["stamps_ns"] if t is not None][-1]
+    assert sum(g["ms"] for g in gaps) + sum(fr["span_ms"] for fr in frames) == pytest.approx((last - first) / 1e6)
+    assert all(g["ms"] >= 0 and sum(g["host_ms"].values()) == pytest.approx(g["ms"], abs=1e-3) for g in gaps)
+
+
 # Kernels the CUDA driver runs for a graph's memset and memcpy nodes: it
 # may run those nodes as these kernels or as copies and sets of their own,
 # and with the mark nodes in the graph it takes the latter.
@@ -763,7 +956,7 @@ def test_card_occlusion_burst_probe_and_pixels(card, tracer):
     assert len(occ) == 8 and len(frames) == 16
     for fr, n in zip(occ, want):
         assert fr["stages"]["probe"] > 0 and fr["pixels"] == n and fr["chunks"] >= 1
-        assert fr["labels"][:6] == ["start", "vertex", "binning", "raster", "binning", "raster"]
+        assert fr["labels"][:14] == ["start", "vertex", *BINNING, "raster", *BINNING, "raster"]
         assert fr["labels"][-2:] == ["shade", "shade"]
     for fr in frames[8:]:
         assert fr["labels"] == FRAME_MARKS + ["shade"] and fr["pixels"] is None and fr["covered"] > 0
@@ -799,7 +992,7 @@ def test_card_darboux_burst_stages_and_pixels(card, tracer):
     frames = snap["frames"]
     assert len(frames) == 8
     for fr, n in zip(frames, want):
-        assert fr["labels"][:6] == ["start", "vertex", "darboux_setup", "vertex", "binning", "raster"]
+        assert fr["labels"][:10] == ["start", "vertex", "darboux_setup", "vertex", *BINNING, "raster"]
         assert fr["labels"][-2:] == ["shade", "shade"]
         assert fr["stages"]["darboux_setup"] > 0 and fr["stages"]["darboux"] > 0
         assert fr["pixels"] == n and fr["chunks"] >= 1
@@ -839,7 +1032,7 @@ def test_card_specular_burst_stage_and_pixels(card, tracer):
     frames = snap["frames"]
     assert len(frames) == 8
     for fr, n in zip(frames, want):
-        assert fr["labels"][:4] == ["start", "vertex", "binning", "raster"]
+        assert fr["labels"][:8] == ["start", "vertex", *BINNING, "raster"]
         assert fr["labels"][-2:] == ["shade", "shade"] and "specular" in fr["labels"]
         assert fr["stages"]["specular"] > 0 and fr["pixels"] == n and fr["chunks"] >= 1
     assert snap["counters"]["specular.pixels"] == sum(want) + want[0]

@@ -16,11 +16,19 @@ records are gathered into CSR order, (cap, lanes), and the id list is None.
 The JAX module also falls back to the gathered layout above SMEM/VMEM
 budgets (binning.py:137-161, :277-281); those guard TPU on-chip memory walls
 that a CUDA kernel reading device memory does not have, and are not ported.
+
+In a frame graph captured with the tracer on, bin_triangles stamps its four
+steps (utils/timing.py mark; steps of the callers' stage ``binning``):
+``binning.keys`` (the candidate keys and the compaction), ``binning.sort``,
+``binning.csr`` (the tile starts, the overflow flag, the id list) and
+``binning.records`` (the record table and, gathered, its rows).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..utils import timing
 
 # Packed per-triangle base record layout (f32 lanes) for the raster kernel.
 #   0: a1   1: b1   2: c1   3: a2   4: b2   5: c2
@@ -177,9 +185,12 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
         tgt = torch.where(ok, base[:, None, None] + local, cap).reshape(-1)
         compacted = torch.full((cap + 1,), _SENTINEL, dtype=torch.int32, device=dev)
         compacted[tgt.clamp(max=cap).long()] = key.reshape(-1)
-        keys_sorted = torch.sort(compacted[:cap]).values
+        keys = compacted[:cap]
     else:
-        keys_sorted = torch.sort(key.reshape(-1)).values
+        keys = key.reshape(-1)
+    timing.mark("binning.keys")
+    keys_sorted = torch.sort(keys).values
+    timing.mark("binning.sort")
 
     boundaries = torch.arange(num_tiles + 1, dtype=torch.int32, device=dev) * K
     starts = torch.searchsorted(keys_sorted, boundaries, right=False).to(torch.int32)
@@ -187,7 +198,9 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
     overflowed = (total > cap) | span_clamped
 
     csr_tris = (keys_sorted[:cap] & (K - 1)).clamp(max=T - 1).to(torch.int32)
+    timing.mark("binning.csr")
     records = pack_triangle_records(setup, spec)
-    if config.csr_indirect:
-        return records, csr_tris, starts, overflowed
-    return records[csr_tris.long()], None, starts, overflowed
+    if not config.csr_indirect:
+        records, csr_tris = records[csr_tris.long()], None
+    timing.mark("binning.records")
+    return records, csr_tris, starts, overflowed

@@ -7,7 +7,9 @@ vertical flip at presentation, scene.rs:92-125).  The public calls record
 the tracer's host spans (utils/timing.py): scene.render (scene.stage, then
 the frame graph's graph.replay and frame.clone), scene.fetch (fetch.wait,
 fetch.copy) and scene.render_sequence (sequence.issue: the replays and, on
-CUDA, each frame's copy to pinned host memory issued; sequence.wait: the
+CUDA, each frame's copy to pinned host memory issued, with
+sequence.alloc, the pinned host frames' allocation, and sequence.angles,
+the angles' copies to the device, inside it; sequence.wait: the
 render finished; sequence.copy: the copies' unhidden tail; the counters
 sequence.frames, the frames it returned, and sequence.overlapped, those
 whose copy was issued before the burst's last replay).
@@ -137,17 +139,16 @@ class Scene:
         cams = np.asarray(camera_angles, np.float32)
         with timing.span("scene.render_sequence"):
             with timing.span("sequence.issue"):
-                host = (torch.empty((len(cams), self.config.height, self.config.width, 3),
-                                    dtype=torch.uint8, pin_memory=True)
-                        if self.device.type == "cuda" else None)
+                with timing.span("sequence.alloc"):
+                    host = (torch.empty((len(cams), self.config.height, self.config.width, 3),
+                                        dtype=torch.uint8, pin_memory=True)
+                            if self.device.type == "cuda" else None)
                 burst = make_burst_fn(self.pipeline_name, self.config, keep_frames=True,
                                       backend=self.backend)
-                out = burst(
-                    self._geom, self._textures,
-                    to_tensor(cams, self.device),
-                    to_tensor(np.asarray(light_angles, np.float32), self.device),
-                    host_frames=host,
-                )
+                with timing.span("sequence.angles"):
+                    cam_t = to_tensor(cams, self.device)
+                    light_t = to_tensor(np.asarray(light_angles, np.float32), self.device)
+                out = burst(self._geom, self._textures, cam_t, light_t, host_frames=host)
             with timing.span("sequence.wait"):
                 self._warn_if_overflowed(out["overflow"])
             with timing.span("sequence.copy"):

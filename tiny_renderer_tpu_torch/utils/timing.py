@@ -35,7 +35,23 @@ The tracer, off by default (``enable()``, ``disable()``, ``snapshot()``):
   that ran, summed by the mark's label), its device span (first mark to
   last), its covered count and chunk bodies, its covered pixels, and the
   call id of the call that issued it.  Frames overwritten before a drain
-  are counted as dropped.
+  are counted as dropped.  A label ``a.b`` is a step of the stage ``a``:
+  its time is charged to ``a.b`` and added into ``a`` as well, so a stage
+  spans the same stamps whether or not its steps are marked (binning's
+  four steps: ops/binning.py);
+* one clock: at enable(), when a ring is made and at each snapshot(), each
+  CUDA ring's device clock is calibrated against time.perf_counter_ns
+  (calibrate(): CLOCK_ROUNDS round trips of a mark into a one-frame ring
+  of its own, the shortest kept); a snapshot's frames carry their stamps
+  on the host's clock (``host_ns``), interpolated between the calibrations
+  at both ends of the period, and the snapshot the offsets, their error
+  and the drift between them (``clock``).  Nothing is calibrated in a
+  frame's path;
+* gaps: for each two frames of a ring that follow each other in a
+  snapshot, the device ms from the first's last stamp to the second's
+  first, whether the two came from different calls (a call boundary), and
+  how the host spent that interval: split over the innermost span open on
+  any thread at each instant, "host" where none was open (``gaps``).
 
 Off, a span site costs two module-level reads (the tracer's flag and
 torch.autograd.profiler's), a mark site one; a graph captured with the
@@ -44,6 +60,7 @@ tracer off holds no mark.
 
 from __future__ import annotations
 
+import bisect
 import collections
 import contextlib
 import ctypes
@@ -132,6 +149,7 @@ MAX_SPANS = 100_000   # spans kept between snapshots (the rest counted as droppe
 MAX_FRAMES = 10_000   # drained device frames kept between snapshots
 RING_FRAMES = 512     # frames a device's ring holds before it wraps
 RING_SLOTS = 61       # marks a frame may make (more are counted, not recorded)
+CLOCK_ROUNDS = 16     # round trips of a clock calibration (the shortest is kept)
 MARK_SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "trace_mark.cu"
 
 _ON = False           # the tracer's state
@@ -153,10 +171,13 @@ def tracing() -> bool:
 
 def enable():
     """Turn the tracer on; on a CUDA machine build the mark kernel
-    (csrc/trace_mark.cu) first, so that no capture builds it."""
+    (csrc/trace_mark.cu) first, so that no capture builds it, and
+    calibrate the clocks of the rings there are."""
     global _ON
     if torch.cuda.is_available():
         _mark_library()
+    for ring in list(_RINGS.values()):
+        ring.clock = ring.calibrate()
     _ON = True
 
 
@@ -255,6 +276,36 @@ def _check(err, what):
         raise RuntimeError(f"trace mark: {what} failed: {_mark_library().trace_error_string(err).decode()}")
 
 
+def _mark(words, frames, slot, advance, covered=None, pixels=None):
+    """One mark into the ring `words` of `frames` frames: mark_kernel on
+    the current stream of a CUDA ring's device, mark_reference on the CPU."""
+    if words.is_cuda:
+        ptrs = [t.data_ptr() if t is not None else None for t in (covered, pixels)]
+        _check(_mark_library().trace_mark(torch.cuda.current_stream(words.device).cuda_stream, words.data_ptr(),
+                                          frames, words.shape[1], slot, int(advance), *ptrs), "a launch")
+    else:
+        mark_reference(words, slot, advance, covered, pixels=pixels)
+
+
+def calibrate(stamp, read, clock=time.perf_counter_ns, rounds=CLOCK_ROUNDS):
+    """A device clock against the host's `clock`: `rounds` round trips of
+    host time, stamp() (a mark and a wait for it), host time; read() gives
+    the round trip's device stamp.  The round trip with the shortest host
+    interval is kept: {"offset_ns": its stamp less the interval's midpoint,
+    "error_ns": half the interval (rounded up), "host_ns": the midpoint}."""
+    best = None
+    for _ in range(rounds):
+        h0 = clock()
+        stamp()
+        h1 = clock()
+        t = read()
+        if best is None or h1 - h0 < best[1] - best[0]:
+            best = (h0, h1, t)
+    h0, h1, t = best
+    mid = (h0 + h1) // 2
+    return {"offset_ns": t - mid, "error_ns": -(-(h1 - h0) // 2), "host_ns": mid}
+
+
 def mark_reference(words, slot, advance, covered=None, now_ns=None, pixels=None):
     """csrc/trace_mark.cu's mark_kernel in plain torch on a ring `words`
     ((frames + 1, stride) int64): the stamp now_ns (default: the host's
@@ -278,7 +329,8 @@ def mark_reference(words, slot, advance, covered=None, now_ns=None, pixels=None)
 
 class _Ring:
     """A device's ring of frame stamps (csrc/trace_mark.cu's layout) and the
-    frames issued into it, in the order the device runs them (one stream)."""
+    frames issued into it, in the order the device runs them (one stream);
+    `clock`, the calibration that opens the current snapshot period."""
 
     def __init__(self, device, frames=RING_FRAMES):
         self.device, self.frames = device, frames
@@ -286,15 +338,27 @@ class _Ring:
         self.lock = threading.Lock()
         self.issued = collections.deque()  # (frame number, call id, FrameMarks), not drained yet
         self.last = 0                      # frames issued so far
+        # A one-frame ring of the clock calibration's own marks (CUDA only).
+        self.probe = (torch.zeros((2, RING_SLOTS + 3), dtype=torch.int64, device=device)
+                      if self.words.is_cuda else None)
+        self.clock = self.calibrate()
 
     def mark(self, slot, advance, covered=None, pixels=None):
-        if self.words.is_cuda:
-            lib = _mark_library()
-            ptrs = [t.data_ptr() if t is not None else None for t in (covered, pixels)]
-            _check(lib.trace_mark(torch.cuda.current_stream(self.device).cuda_stream, self.words.data_ptr(),
-                                  self.frames, self.words.shape[1], slot, int(advance), *ptrs), "a launch")
-        else:
-            mark_reference(self.words, slot, advance, covered, pixels=pixels)
+        _mark(self.words, self.frames, slot, advance, covered, pixels)
+
+    def calibrate(self):
+        """This ring's device clock against time.perf_counter_ns
+        (calibrate(): marks into `probe`, a one-frame ring of its own, each
+        waited for).  A CPU ring's stamps are that clock: offset and error 0."""
+        if self.probe is None:
+            return {"offset_ns": 0, "error_ns": 0, "host_ns": time.perf_counter_ns()}
+
+        def stamp():
+            _mark(self.probe, 1, 0, True)
+            torch.cuda.synchronize(self.device)
+
+        with torch.cuda.device(self.device):
+            return calibrate(stamp, lambda: int(self.probe[1, 0]))
 
     def issue(self, marks, launch):
         """launch() one frame of a graph whose capture recorded `marks`."""
@@ -333,7 +397,8 @@ def _frame_record(row, call, marks, device):
     counter), its stages' device ms, span, covered count, chunk bodies run,
     covered pixels and the counter they go to, stamps (None for a mark that
     did not run) and labels, and the call id that issued it.  A stage is
-    charged from the previous stamp present to each stamp present."""
+    charged from the previous stamp present to each stamp present; a step
+    `a.b`'s time is added into its stage `a` too."""
     labels = marks.labels
     stamps = [t if t >= 0 else None for t in row[:len(labels)]]
     stages, present = {}, []
@@ -341,7 +406,11 @@ def _frame_record(row, call, marks, device):
         if t is None:
             continue
         if present:
-            stages[label] = stages.get(label, 0.0) + (t - present[-1]) / 1e6
+            ms = (t - present[-1]) / 1e6
+            stages[label] = stages.get(label, 0.0) + ms
+            stage, step, _ = label.partition(".")
+            if step:
+                stages[stage] = stages.get(stage, 0.0) + ms
         present.append(t)
     covered = None if row[-1] < 0 else row[-1]
     chunks = (None if covered is None or marks.chunk_starts is None
@@ -503,13 +572,21 @@ def snapshot() -> dict:
     (the tracer on or off: the frames issued while it was on are drained
     here): spans (name, start_ns, end_ns, ms, id, parent id, call id), counters
     (while the tracer is on, with graph.pool_bytes: the pools of the
-    captured graphs alive), the drained device frames, the spans and frames
-    dropped, and copies of raster_cuda.LAUNCHES, vertex_cuda.LAUNCHES,
-    occlusion_cuda.LAUNCHES, darboux_cuda.LAUNCHES and shadow_cuda.LAUNCHES."""
+    captured graphs alive), the drained device frames (each with its stamps
+    on the host's clock, host_ns), the gaps between them ("gaps":
+    frame_gaps), each ring's clock over the period ("clock": clock_period,
+    by device), the spans and frames dropped, and copies of
+    raster_cuda.LAUNCHES, vertex_cuda.LAUNCHES, occlusion_cuda.LAUNCHES,
+    darboux_cuda.LAUNCHES and shadow_cuda.LAUNCHES."""
     from ..ops import darboux_cuda, occlusion_cuda, raster_cuda, shadow_cuda, vertex_cuda
     from ..pipelines import graphs
 
     drain(everything=True)
+    periods = {}
+    for ring in list(_RINGS.values()):
+        end = ring.calibrate()
+        periods[str(ring.device)] = (ring.clock, end)
+        ring.clock = end
     with _LOCK:
         spans, frames, counters = list(_spans), list(_frames), dict(_counters)
         dropped = dict(_dropped)
@@ -519,11 +596,16 @@ def snapshot() -> dict:
         _dropped.update(spans=0, frames=0)
     if _ON:
         counters["graph.pool_bytes"] = graphs.pool_bytes()
+    for fr in frames:
+        fr["host_ns"] = to_host(fr["stamps_ns"], *periods[fr["device"]])
+    spans = [{"name": n, "start_ns": a, "end_ns": b, "ms": (b - a) / 1e6, "id": i, "parent": p, "call": c}
+             for n, a, b, i, p, c in spans]
     return {
-        "spans": [{"name": n, "start_ns": a, "end_ns": b, "ms": (b - a) / 1e6, "id": i, "parent": p, "call": c}
-                  for n, a, b, i, p, c in spans],
+        "spans": spans,
         "counters": counters,
         "frames": frames,
+        "gaps": frame_gaps(frames, spans),
+        "clock": {dev: clock_period(*period) for dev, period in periods.items()},
         "dropped": dropped,
         "launches": dict(raster_cuda.LAUNCHES),
         "vertex_launches": dict(vertex_cuda.LAUNCHES),
@@ -533,9 +615,98 @@ def snapshot() -> dict:
     }
 
 
+def clock_period(start, end):
+    """A device clock over a snapshot period from the calibrations at its
+    two ends: both offsets, the larger error, the drift between them."""
+    span = end["host_ns"] - start["host_ns"]
+    drift = (end["offset_ns"] - start["offset_ns"]) / span * 1e6 if span > 0 else 0.0
+    return {"offset_ns": [start["offset_ns"], end["offset_ns"]], "host_ns": [start["host_ns"], end["host_ns"]],
+            "error_ns": max(start["error_ns"], end["error_ns"]), "drift_ppm": drift}
+
+
+def to_host(stamps, start, end):
+    """Device stamps (None for a mark that did not run) on the host's clock:
+    less the offset, interpolated linearly between the calibrations
+    `start` and `end` by the stamp's place between them."""
+    d0 = start["host_ns"] + start["offset_ns"]
+    d1 = end["host_ns"] + end["offset_ns"]
+    o0, o1 = start["offset_ns"], end["offset_ns"]
+    out = []
+    for t in stamps:
+        if t is None:
+            out.append(None)
+        else:
+            offset = o0 + (o1 - o0) * (t - d0) / (d1 - d0) if d1 != d0 else o0
+            out.append(round(t - offset))
+    return out
+
+
+def _owners(spans):
+    """The host clock cut where a span opens or closes: [(start, end,
+    name)] of each piece in which some span is open, the name that of the
+    innermost open span (the one opened last; on a tie the one that closes
+    first), on any thread."""
+    events = sorted([(sp["start_ns"], 1, k) for k, sp in enumerate(spans)]
+                    + [(sp["end_ns"], 0, k) for k, sp in enumerate(spans)])
+    pieces, open_, last = [], set(), None
+    for t, opens, k in events:
+        if open_ and t > last:
+            inner = max(open_, key=lambda j: (spans[j]["start_ns"], -spans[j]["end_ns"], spans[j]["id"]))
+            pieces.append((last, t, spans[inner]["name"]))
+        if opens:
+            open_.add(k)
+        else:
+            open_.discard(k)
+        last = t
+    return pieces
+
+
+def _split(a, b, pieces, starts):
+    """{span name: ms} of the host interval [a, b) over `pieces`
+    (_owners; `starts` their starts), "host" for the time in none."""
+    out, inside = {}, 0
+    k = max(bisect.bisect_right(starts, a) - 1, 0)
+    while k < len(pieces) and pieces[k][0] < b:
+        lo, hi = max(a, pieces[k][0]), min(b, pieces[k][1])
+        if hi > lo:
+            out[pieces[k][2]] = out.get(pieces[k][2], 0) + (hi - lo)
+            inside += hi - lo
+        k += 1
+    if b - a > inside:
+        out["host"] = b - a - inside
+    return {name: ns / 1e6 for name, ns in out.items()}
+
+
+def frame_gaps(frames, spans):
+    """The gaps between drained frames: for each frame of a ring and the
+    next (the next frame number) among `frames`, {"device", "after_frame":
+    the first's number, "ms": device ms from its last stamp present to the
+    next one's first, "call_boundary": the two from different calls,
+    "host_ms": {span name: ms} of that interval on the host's clock (the
+    frames' host_ns), split over the innermost span open (_owners), "host"
+    where none was}."""
+    pieces = _owners(spans)
+    starts = [p[0] for p in pieces]
+    last, gaps = {}, []
+    for fr in frames:
+        prev = last.get(fr["device"])
+        last[fr["device"]] = fr
+        if prev is None or fr["frame"] != prev["frame"] + 1:
+            continue
+        t0 = [t for t in prev["stamps_ns"] if t is not None][-1]
+        t1 = next(t for t in fr["stamps_ns"] if t is not None)
+        h0 = [t for t in prev["host_ns"] if t is not None][-1]
+        h1 = next(t for t in fr["host_ns"] if t is not None)
+        gaps.append({"device": fr["device"], "after_frame": prev["frame"], "ms": (t1 - t0) / 1e6,
+                     "call_boundary": fr["call"] != prev["call"], "host_ms": _split(h0, h1, pieces, starts)})
+    return gaps
+
+
 def report(snap) -> str:
     """A snapshot as text: per-stage device ms (median over the frames),
-    host spans (count and median ms by name) and the counters."""
+    each stage's steps, the gaps between frames (within a call and at call
+    boundaries apart: count, median, total, and the total by host span),
+    the clocks, host spans (count and median ms by name) and the counters."""
     lines = []
     frames = snap["frames"]
     if frames:
@@ -543,9 +714,31 @@ def report(snap) -> str:
         for fr in frames:
             for k, v in fr["stages"].items():
                 stages.setdefault(k, []).append(v)
+        median = {k: statistics.median(v) for k, v in stages.items()}
         lines.append(f"device stages of {len(frames)} traced frames (median ms): "
-                     + ", ".join(f"{k} {statistics.median(v):.3f}" for k, v in stages.items())
+                     + ", ".join(f"{k} {v:.3f}" for k, v in median.items() if "." not in k)
                      + f"; frame span {statistics.median(fr['span_ms'] for fr in frames):.3f}")
+        steps = {}
+        for k, v in median.items():
+            stage, dot, step = k.partition(".")
+            if dot:
+                steps.setdefault(stage, []).append(f"{step} {v:.3f}")
+        for stage, got in steps.items():
+            lines.append(f"  {stage} steps (median ms): " + ", ".join(got) + f"; of {stage} {median[stage]:.3f}")
+    for boundary, what in ((False, "within a call"), (True, "at call boundaries")):
+        gaps = [g for g in snap["gaps"] if g["call_boundary"] == boundary]
+        if not gaps:
+            continue
+        owners = collections.Counter()
+        for g in gaps:
+            owners.update(g["host_ms"])
+        lines.append(f"gaps between frames {what}: {len(gaps)}, "
+                     f"median {statistics.median(g['ms'] for g in gaps):.3f} ms, "
+                     f"total {sum(g['ms'] for g in gaps):.3f} ms; the host meanwhile (ms): "
+                     + ", ".join(f"{k} {v:.3f}" for k, v in owners.most_common()))
+    for dev, c in snap["clock"].items():
+        lines.append(f"clock {dev}: offset {c['offset_ns'][1]} ns, error {c['error_ns']} ns, "
+                     f"drift {c['drift_ppm']:.2f} ppm")
     by_name = {}
     for s in snap["spans"]:
         by_name.setdefault(s["name"], []).append(s["ms"])
