@@ -62,6 +62,23 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              kernel's device ms and the strip shade replayed with it and
              with the torch body, beside its bound (shadow_phase, runnable
              alone).
+2f. binning — csrc/binning.cu (a stable counting sort by tile with the
+             record pack, one launch a pass): bin_triangles bit-equal to
+             bin_triangles_reference on the card (records as bits, ids,
+             starts, the overflow flag) on both passes of the four
+             benchmark configurations at orbit poses under binning_compact
+             and csr_indirect both ways, an overflowing max_incidences under
+             each drop rule, span caps of one tile, a band at row tile
+             offset 2 and the camera pass's record specs (interp, const,
+             texidx lanes), on the adversarial screen-space scenes and
+             soups, and on the flagship subdivided to 81,536 triangles and
+             its bands; each cell's replayed 60-frame burst byte-equal to
+             the plain version's eager burst with one binning launch a pass
+             a frame, binning_launches in a traced render_sequence's
+             snapshot; in the profiler the binning kernels of a replayed
+             shadow burst and kernels a frame; both passes' binning
+             replayed alone with the kernel and with the plain version,
+             beside the bound (binning_phase, runnable alone).
 3. kernel  — every kernel mode against its plain torch twin on seeded random
              soups, the depth tie case, the flagship scene's two passes and
              five adversarial screen-space scenes (large and huge triangles,
@@ -190,7 +207,9 @@ Phases (each prints a line; any failure raises, so the exit code is not 0):
              a 2-frame burst bit-identical to the same with the twins as
              K1 and K2, the replayed frame (make_frame_fn) and burst
              byte-equal to the eager ones at two poses, with the eager
-             launches per replay.
+             launches per replay; the eager frame and burst equal to the
+             same with the plain binning, under the drawn binning_compact
+             and csr_indirect.
 11. timing  — kernel and twin ms per launch per mode at the flagship shapes
              (CUDA events around launches paced by the host, as the times
              before the redesign were taken, and the kernel's device time
@@ -1681,6 +1700,294 @@ def shadow_phase(dev, smi):
           f"triangles), {bound_ms / alone:.3%} of it alone, {bound_ms / result['in_burst_ms']:.3%} in the burst  "
           f"[{smi}]")
     print(json.dumps({"shadow": result}), flush=True)
+    return result
+
+
+# The binning phase: csrc/binning.cu against the plain version on the card,
+# the frames it gives against the plain version's eager frames, its launches
+# and its time.
+BINNING_SEED = 2_147_522_817
+BINNING_CELLS = ("diablo-shadow.orbit-burst", "diablo-occlusion.orbit-burst", "diablo-darboux.orbit-burst",
+                 "diablo-specular.orbit-burst")
+BINNING_POSES = 3  # orbit poses a cell
+# Knobs each pass is binned under besides the cell's own config: both drop
+# rules at a cap the frame overflows, the gathered layout, span caps of one
+# tile (clamped) and a band of 5 tile rows at row tile offset 2.
+BINNING_KNOBS = {
+    "default": {}, "compact": dict(binning_compact=True), "gathered": dict(csr_indirect=False),
+    "compact+gathered": dict(binning_compact=True, csr_indirect=False),
+    "cap 1024": dict(max_incidences=1024), "cap 1024 compact": dict(max_incidences=1024, binning_compact=True),
+    "cap 1024 gathered": dict(max_incidences=1024, csr_indirect=False),
+    "cap 1024 compact+gathered": dict(max_incidences=1024, binning_compact=True, csr_indirect=False),
+    "span 1x1": dict(max_span_y=1, max_span_x=1), "span 1x1 compact": dict(max_span_y=1, max_span_x=1,
+                                                                            binning_compact=True),
+}
+BINNING_BAND = (2, 5)  # (row tile offset, tile rows) of the band case
+BINNING_TIMED = 200
+BINNING_KERNEL = re.compile(r"binning_kernel")
+
+
+def plain_binning():
+    """bin_triangles' plain version (binning.bin_triangles_reference) on
+    CUDA tensors too, inside the returned context: for eager frames, since
+    a graph captured inside it would be cached with the plain version."""
+    from tiny_renderer_tpu_torch.ops import binning, binning_cuda
+
+    return mock.patch.object(binning_cuda, "bin_triangles", binning.bin_triangles_reference)
+
+
+def bits_equal(a, b):
+    """Two tensors of one dtype and shape, equal bit for bit (floats as
+    their bits, NaN payloads included)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype == torch.float32:
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+    return torch.equal(a, b)
+
+
+def binning_phase(dev, smi):
+    """Phase 2f: csrc/binning.cu on the card.  Builds it (ptxas registers
+    printed).  bin_triangles (the kernel) bit-equal to
+    bin_triangles_reference on the same CUDA tensors, every output
+    (records as bits, ids, starts, the overflow flag): both passes of the
+    four benchmark configurations at BINNING_POSES orbit poses under
+    BINNING_KNOBS and in a band at a row tile offset; the camera pass's
+    record spec lanes of each mode (interp, const, texidx) indirect and
+    gathered; the adversarial screen-space scenes (huge and hot-tile
+    triangles) and random soups; the flagship subdivided to 81,536
+    triangles (its bands under row_bands=4 too).  Overflow is seen under
+    each drop rule and a span cap.  The kernel's launches are counted, the
+    plain version's not.  Then each cell's replayed 60-frame burst
+    byte-equal to the plain version's eager burst, with one binning launch
+    a pass a frame, and binning_launches in the tracer's snapshot of a
+    traced render_sequence.  torch.profiler over the shadow cell's replayed
+    burst: kernels a frame and the binning kernel's device time.  Both
+    passes' binning at the shadow cell's 5,096 triangles captured as a
+    graph, with the kernel and with the plain version, timed in turns.
+    Returns the numbers for the kernel table."""
+    from benchmark import harness, tracing
+    from benchmark.orbit import Orbit
+    from tiny_renderer_tpu_torch import RenderConfig
+    from tiny_renderer_tpu_torch.app import flagship_model
+    from tiny_renderer_tpu_torch.assets.mesh_tools import subdivide_mesh
+    from tiny_renderer_tpu_torch.convert import to_tensor
+    from tiny_renderer_tpu_torch.models.stress import adversarial, screen_scene
+    from tiny_renderer_tpu_torch.ops import binning_cuda, raster_cuda
+    from tiny_renderer_tpu_torch.ops.binning import bin_triangles, bin_triangles_reference, incidence_cap, record_lanes
+    from tiny_renderer_tpu_torch.ops.vertex import triangle_setup
+    from tiny_renderer_tpu_torch.pipelines import frame as tframe
+    from tiny_renderer_tpu_torch.pipelines.graphs import CapturedGraph
+    from tiny_renderer_tpu_torch.pipelines.shaders import VARYING_SPECS, kernel_varying_spec
+    from tiny_renderer_tpu_torch.utils import timing
+
+    lib, seconds, log = raster_cuda.build(force=True, source=binning_cuda.SOURCE)
+    phase("binning", f"nvcc {' '.join(raster_cuda.NVCC_FLAGS)} -> {lib.name} in {seconds:.3f} s")
+    registers = [line.strip() for line in log.splitlines()
+                 if "Compiling entry" in line or "registers" in line or "spill" in line]
+    for line in registers:
+        phase("binning", line)
+
+    n_cases, overflowed = 0, collections.Counter()
+
+    def both(label, setup, cfg, spec=(), off=0):
+        """The kernel against the plain version on one pass; counts the
+        overflows by drop rule."""
+        nonlocal n_cases
+        got = bin_triangles(setup, cfg, spec, row_tile_offset=off)
+        want = bin_triangles_reference(setup, cfg, spec, off)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("records", "tris", "starts", "overflowed"), got, want):
+            check((a is None) == (b is None), f"{label}: {name} is None on one side only")
+            if a is not None and not bits_equal(a, b):
+                phase("binning", f"{label}: {name} {a.dtype}{tuple(a.shape)} against {b.dtype}{tuple(b.shape)}; "
+                      f"starts {got[2][:8].tolist()} against {want[2][:8].tolist()}")
+            check(a is None or bits_equal(a, b), f"{label}: {name} differs from the plain version")
+        if bool(want[3]):
+            overflowed["compact" if cfg.binning_compact else "tile-major"] += 1
+        n_cases += 1
+        return got
+
+    def knob_cases(label, setup, cfg, spec_cases=()):
+        for kname, kw in BINNING_KNOBS.items():
+            both(f"{label} {kname}", setup, dataclasses.replace(cfg, **kw))
+        off, rows = BINNING_BAND
+        band = dataclasses.replace(cfg, height=rows * cfg.tile_h, max_incidences=4096)
+        for compact in (False, True):
+            both(f"{label} band at row tile {off} compact={compact}", setup,
+                 dataclasses.replace(band, binning_compact=compact), off=off)
+        for sname, spec in spec_cases:
+            for gathered in (False, True):
+                both(f"{label} spec {sname} gathered={gathered}", setup,
+                     dataclasses.replace(cfg, csr_indirect=not gathered), spec)
+
+    binning_cuda.reset_launches()
+    t0 = time.perf_counter()
+    cells, modes = {}, set()
+    for name in BINNING_CELLS:
+        cell = harness.find_cell(name)
+        sc = harness.build_scene(cell.config, BINNING_SEED, dev)[0]
+        config = sc.config.resolve(sc.pipeline_name)
+        spec = tframe.PIPELINES[sc.pipeline_name]
+        orbit = Orbit(BINNING_SEED, cell.traffic["camera_step_rad"], cell.traffic["light_step_rad"])
+        cells[name] = (cell, sc, config, orbit)
+        # The camera pass's record specs: the full-screen shade's kernel
+        # spec, the pipeline's own varyings and, for darboux, the reference
+        # spec of mixed map sizes with its four consts.
+        specs = {"kernel": kernel_varying_spec(sc.pipeline_name, sc._textures, tile=config.tex_tile),
+                 "varyings": tuple(VARYING_SPECS[sc.pipeline_name])}
+        if sc.pipeline_name == "darboux":
+            half = torch.empty((512, 512, 3), dtype=torch.uint8)
+            specs["mixed"] = kernel_varying_spec("darboux", {**sc._textures, "normal_map_tangent": half})
+        for i, view in enumerate(orbit_views(orbit, 0, BINNING_POSES, dev)):
+            u1, u = tframe._uniforms(spec, config, *view)
+            setups = {"camera": triangle_setup(sc._geom, u, config, needs=spec.needs)}
+            if spec.two_pass:
+                setups["light"] = triangle_setup(sc._geom, u1, config, matrix_key="shadow_matrix", cull=False)
+            for pname, setup in setups.items():
+                knob_cases(f"{name} pose {i} {pname}", setup, config,
+                           specs.items() if pname == "camera" and i == 0 else ())
+        modes |= {m.split(":")[0] for s in specs.values() for _, _, m in s}
+    check({"interp", "const", "texidx"} <= modes, f"spec lane modes seen: {sorted(modes)}")
+    phase("binning", f"the four cells' passes at {BINNING_POSES} poses under {len(BINNING_KNOBS)} knob sets, a band "
+          f"at row tile {BINNING_BAND[0]} and the camera pass's specs ({sorted(modes)}): {n_cases} cases  "
+          f"[{time.perf_counter() - t0:.1f} s]")
+
+    # Screen-space scenes and soups at 800^2, through a matrix that maps
+    # them onto the screen as they are.
+    t1 = time.perf_counter()
+    cfg = RenderConfig().resolve("shadow")
+    eye = torch.eye(4, device=dev)
+    screen = {"vpmv": eye, "m": eye, "it_m": eye}
+    scenes = {name: screen_scene(tris, 1) for name, tris in adversarial(cfg.width, cfg.height).items()}
+    for s in range(2):
+        rng = np.random.default_rng(s)
+        scenes[f"soup{s}"] = screen_scene(np.concatenate(
+            [rng.uniform(-50, [850, 850], (3000, 1, 2)) + rng.uniform(-120, 120, (3000, 3, 2)),
+             rng.uniform(-0.9, 0.9, (3000, 3, 1))], -1), s)
+    for name, geom_np in scenes.items():
+        g = {k: to_tensor(v, dev) for k, v in geom_np.items()}
+        knob_cases(f"{name}", triangle_setup(g, screen, cfg, cull=False), cfg)
+    phase("binning", f"{len(scenes)} screen-space scenes ({sorted(scenes)}) under the same knobs  "
+          f"[{time.perf_counter() - t1:.1f} s]")
+
+    # The capacity scene: the flagship subdivided twice.
+    t2 = time.perf_counter()
+    mesh = subdivide_mesh(flagship_model().mesh, 2)
+    g = {k: to_tensor(getattr(mesh, k), dev) for k in MESH_FIELDS}
+    view = [to_tensor(np.float32(v), dev) for v in VIEW]
+    spec = tframe.PIPELINES["shadow"]
+    u1, u = tframe._uniforms(spec, cfg, *view)
+    cap_setups = {"light": triangle_setup(g, u1, cfg, matrix_key="shadow_matrix", cull=False),
+                  "camera": triangle_setup(g, u, cfg, needs=spec.needs)}
+    T_cap = mesh.num_triangles
+    for pname, setup in cap_setups.items():
+        for kname in ("default", "compact", "gathered", "cap 1024", "cap 1024 compact"):
+            both(f"capacity {pname} {kname}", setup, dataclasses.replace(cfg, **BINNING_KNOBS[kname]))
+        for t, _, band in tframe._band_plan(setup, dataclasses.replace(cfg, row_bands=4)):
+            both(f"capacity {pname} band at row tile {t}", setup, band, off=t)
+    check(T_cap == 81_536, f"capacity scene of {T_cap} triangles")
+    check(overflowed["compact"] > 0 and overflowed["tile-major"] > 0, f"overflows by drop rule: {overflowed}")
+    check(binning_cuda.LAUNCHES == {"bin": n_cases},
+          f"binning launches {binning_cuda.LAUNCHES} for {n_cases} kernel calls (the plain version counts none)")
+    phase("binning", f"capacity ({T_cap} triangles, cap {incidence_cap(T_cap, cfg)}): both passes, 5 knob sets and "
+          f"the bands of row_bands=4; {n_cases} cases in all bit-equal to the plain version, overflowed under "
+          f"{dict(overflowed)}; binning launches = cases  [{time.perf_counter() - t2:.1f} s]")
+
+    # Each cell's replayed burst against the plain version's eager burst,
+    # and the tracer's snapshot of a traced render_sequence.
+    t3 = time.perf_counter()
+    for name, (cell, sc, config, orbit) in cells.items():
+        n = cell.traffic["frames_per_call"]
+        passes = 2 if tframe.PIPELINES[sc.pipeline_name].two_pass else 1
+        cams, ligs = orbit.angles(40, n)
+        kw = dict(pipeline=sc.pipeline_name, config=config, keep_frames=True)
+        bc, bl = to_tensor(cams, dev), to_tensor(ligs, dev)
+        tframe.render_burst(sc._geom, sc._textures, bc, bl, **kw)  # captures
+        binning_cuda.reset_launches()
+        got = tframe.render_burst(sc._geom, sc._textures, bc, bl, **kw)
+        check(binning_cuda.LAUNCHES == {"bin": passes * n},
+              f"{name}: binning launches of a replayed {n}-frame burst {binning_cuda.LAUNCHES}")
+        with plain_binning():
+            want = tframe._render_burst_eager(sc._geom, sc._textures, bc, bl, **kw)
+        for k in ("frames", "checksums", "overflow"):
+            check(torch.equal(got[k], want[k]), f"{name}: the replayed burst's {k} differ from the plain version's")
+        timing.enable()
+        try:
+            sc.render_sequence(cams, ligs)  # captures the traced burst
+            timing.snapshot()
+            binning_cuda.reset_launches()
+            seq = sc.render_sequence(cams, ligs)
+            snap = timing.snapshot()
+        finally:
+            timing.disable()
+        check(snap["binning_launches"] == {"bin": passes * n}, f"{name}: binning_launches {snap['binning_launches']}")
+        check(np.array_equal(seq, want["frames"].cpu().numpy()[:, ::-1]),
+              f"{name}: the traced render_sequence differs from the plain version's eager burst")
+    phase("binning", f"the four cells' replayed {n}-frame bursts byte-equal to the plain version's eager bursts, "
+          f"one binning launch a pass a frame; binning_launches in a traced render_sequence's snapshot  "
+          f"[{time.perf_counter() - t3:.1f} s]")
+
+    # The profiler over the shadow cell's replayed burst, and both passes'
+    # binning alone, replayed with the kernel and with the plain version.
+    cell, sc, config, orbit = cells[BINNING_CELLS[0]]
+    n = cell.traffic["frames_per_call"]
+    bc, bl = (to_tensor(a, dev) for a in orbit.angles(40, n))
+    kw = dict(pipeline=sc.pipeline_name, config=config, keep_frames=True)
+    trace = tracing.summarize(tracing.profile(
+        lambda: tframe.render_burst(sc._geom, sc._textures, bc, bl, **kw), dev)[0], frames=n)
+    in_burst = [t * 1e3 for kname, t in trace.kernels if BINNING_KERNEL.search(kname)]
+    kernels_a_frame = len(trace.kernels) / n
+    check(len(in_burst) == 2 * n, f"{len(in_burst)} binning kernels in the profiled {n}-frame burst, not {2 * n}")
+    spec = tframe.PIPELINES[sc.pipeline_name]
+    view = orbit_views(orbit, 0, 1, dev)[0]
+    u1, u = tframe._uniforms(spec, config, *view)
+    setups = (triangle_setup(sc._geom, u1, config, matrix_key="shadow_matrix", cull=False),
+              triangle_setup(sc._geom, u, config, needs=spec.needs))
+
+    def stage(s1, s2):
+        return bin_triangles(s1, config)[:3] + bin_triangles(s2, config)[:3]
+
+    inputs = [s[k] for s in setups for k in ("valid", "x0", "x1", "y0", "y1", "a1", "b1", "c1", "a2", "b2", "c2",
+                                             "cz", "zv")]
+
+    def layer(*cols):
+        keys = ("valid", "x0", "x1", "y0", "y1", "a1", "b1", "c1", "a2", "b2", "c2", "cz", "zv")
+        return stage(dict(zip(keys, cols[:13])), dict(zip(keys, cols[13:])))
+
+    g_kernel = CapturedGraph(layer, inputs, "both passes' binning")
+    with plain_binning():
+        g_plain = CapturedGraph(layer, inputs, "both passes' plain binning")
+        plain_trace = tracing.summarize(tracing.profile(lambda: layer(*inputs), dev)[0], frames=1)
+    check(g_kernel.binning_launches == {"bin": 2} and not any(g_plain.binning_launches.values()),
+          f"binning launches recorded: {g_kernel.binning_launches}, plain {g_plain.binning_launches}")
+    check(all(bits_equal(a, b) for a, b in zip(g_kernel(*inputs), g_plain(*inputs))),
+          "the replayed binnings differ")
+    ms = {}
+    for label, g in (("plain", g_plain), ("kernel", g_kernel), ("kernel2", g_kernel), ("plain2", g_plain)):
+        ms[label] = time_launches(lambda g=g: g.graph.replay(), BINNING_TIMED, hold=True)
+    ms_kernel, ms_plain = min(ms["kernel"], ms["kernel2"]), min(ms["plain"], ms["plain2"])
+    alone = time_launches(lambda: bin_triangles(setups[1], config), BINNING_TIMED, hold=True)
+    T = setups[0]["valid"].shape[0]
+    cap = incidence_cap(T, config)
+    # Bytes a pass: the setup columns read once (valid, the bbox, the edge
+    # coefficients, cz, zv: 57 B a triangle), the record table, the id list
+    # and the starts written once.
+    nbytes = 2 * (T * 57 + T * record_lanes(()) * 4 + cap * 4 + (config.num_tiles + 1) * 4 + 1)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    result = {
+        "device_ms": alone, "in_burst_ms": float(np.mean(in_burst)), "stage_graph_ms": ms_kernel,
+        "plain_graph_ms": ms_plain, "plain_kernels": len(plain_trace.kernels), "kernels_per_frame": kernels_a_frame,
+        "bound_ms": bound_ms, "bytes": nbytes, "cases": n_cases, "registers": registers, "build_s": seconds,
+    }
+    phase("binning", f"profiled replayed shadow burst: {kernels_a_frame:.2f} kernels a frame, {len(in_burst) / n:.0f} "
+          f"of them binning kernels, {result['in_burst_ms']:.4f} ms each; the camera pass's kernel alone "
+          f"{alone:.4f} ms (queue held full)")
+    phase("binning", f"both passes' binning replayed alone ({T} triangles, {config.num_tiles} tiles): "
+          f"{ms_kernel:.4f} ms a replay against the plain version's {ms_plain:.4f} ms ({len(plain_trace.kernels)} "
+          f"kernels eagerly); bound {bound_ms * 1e3:.3f} us ({nbytes} B at 3.35 TB/s), {bound_ms / ms_kernel:.2%} "
+          f"of it  [{smi}]")
+    print(json.dumps({"binning": result}), flush=True)
     return result
 
 
@@ -3376,7 +3683,9 @@ def fuzz_phase(dev, record):
     K1 and K2, and the replayed frame (make_frame_fn) byte-equal to it; a
     2-frame burst at the same angles (no z: K2 where the gate allows it)
     replayed equal to the eager burst and to the twins' burst.  Launches
-    per replay equal to the eager ones."""
+    per replay equal to the eager ones.  The eager frames and burst also
+    equal the same with the plain binning (plain_binning) in place of the
+    binning kernel, under the drawn binning_compact and csr_indirect."""
     from tiny_renderer_tpu_torch import RenderConfig
     from tiny_renderer_tpu_torch.convert import scene_arrays, to_tensor
     from tiny_renderer_tpu_torch.models.procedural import make_textures
@@ -3397,6 +3706,10 @@ def fuzz_phase(dev, record):
 
     def twin(fn):
         with twins[0], twins[1]:
+            return fn()
+
+    def plain(fn):
+        with plain_binning():
             return fn()
 
     draws = []
@@ -3420,10 +3733,13 @@ def fuzz_phase(dev, record):
                 [np.sin(cams[i].item()), 0.0, np.cos(cams[i].item())], [0.0, 0.0, 0.0], [0.0, 1.0, 0.0])]
             eager, e_counts = counted(lambda: render_frame(g, t, *view, pipeline=pipeline, config=cfg))
             tw = twin(lambda: render_frame(g, t, *view, pipeline=pipeline, config=cfg))
+            pb = plain(lambda: render_frame(g, t, *view, pipeline=pipeline, config=cfg))
             got, counts = counted(lambda: fn(g, t, *view))
             record(f"fuzz {pipeline}", counts)
             for k in ("frame", "z", "shadow", "overflow"):
                 check(torch.equal(eager[k], tw[k]), f"{label} pose {i}: the eager {k} differs from the twins'")
+                check(torch.equal(eager[k], pb[k]), f"{label} pose {i}: the eager {k} differs from the plain "
+                      f"binning's")
                 check(torch.equal(got[k], eager[k]), f"{label} pose {i}: the replayed {k} differs from eager")
             # The first call adds the capture's warm-up frame.
             check(counts == {m: (1 if i else 2) * n for m, n in e_counts.items()},
@@ -3431,10 +3747,12 @@ def fuzz_phase(dev, record):
         eb, e_counts = counted(lambda: _render_burst_eager(g, t, cams, ligs, pipeline=pipeline, config=cfg,
                                                            keep_frames=True))
         tb = twin(lambda: _render_burst_eager(g, t, cams, ligs, pipeline=pipeline, config=cfg, keep_frames=True))
+        pbb = plain(lambda: _render_burst_eager(g, t, cams, ligs, pipeline=pipeline, config=cfg, keep_frames=True))
         rb, b_counts = counted(lambda: make_burst_fn(pipeline, cfg, keep_frames=True)(g, t, cams, ligs))
         record(f"fuzz {pipeline}", b_counts)
         for k in ("frames", "checksums", "overflow"):
             check(torch.equal(eb[k], tb[k]), f"{label}: the eager burst's {k} differ from the twins'")
+            check(torch.equal(eb[k], pbb[k]), f"{label}: the eager burst's {k} differ from the plain binning's")
             check(torch.equal(rb[k], eb[k]), f"{label}: the replayed burst's {k} differ from the eager burst's")
         check(all(n % 2 == 0 for n in e_counts.values())
               and b_counts == {m: 3 * n // 2 for m, n in e_counts.items()},
@@ -3516,6 +3834,10 @@ def main() -> int:
     # -- 2e. shadow -----------------------------------------------------------
     shadow_phase(dev, smi)
     lap("shadow")
+
+    # -- 2f. binning ----------------------------------------------------------
+    binning_phase(dev, smi)
+    lap("binning")
 
     cfg = RenderConfig().resolve("shadow")  # 800x800, the default config
     grid = dict(tile_h=cfg.tile_h, tile_w=cfg.tile_w, tiles_y=cfg.tiles_y, tiles_x=cfg.tiles_x)

@@ -2,12 +2,14 @@
 (``tiny_renderer_tpu.ops.binning``).
 
 Each triangle is binned into every (tile_h x tile_w) tile its screen-clamped
-bbox overlaps, up to max_span_y x max_span_x tiles.  The packed keys
-``tile_id * K + tri_id`` are sorted, per-tile ranges come from
-``searchsorted``, and within each tile triangle indices ascend — the
-reference's polygon-order depth tie-break (shader.rs:169-180).  Coverage
-caps (span clamp, global incidence cap) drop deterministically and are
-reported through ``overflowed``.
+bbox overlaps, up to max_span_y x max_span_x tiles.  In the plain version
+(bin_triangles_reference) the packed keys ``tile_id * K + tri_id`` are
+sorted, per-tile ranges come from ``searchsorted``, and within each tile
+triangle indices ascend — the reference's polygon-order depth tie-break
+(shader.rs:169-180).  Coverage caps (span clamp, global incidence cap) drop
+deterministically and are reported through ``overflowed``.  On CUDA
+tensors one kernel (ops/binning_cuda.py) computes the same outputs by a
+stable counting sort by tile.
 
 With ``config.csr_indirect`` (the default) the result is the indirect
 layout: the compact (T, lanes) record table plus the (cap,) sorted
@@ -21,7 +23,9 @@ In a frame graph captured with the tracer on, bin_triangles stamps its four
 steps (utils/timing.py mark; steps of the callers' stage ``binning``):
 ``binning.keys`` (the candidate keys and the compaction), ``binning.sort``,
 ``binning.csr`` (the tile starts, the overflow flag, the id list) and
-``binning.records`` (the record table and, gathered, its rows).
+``binning.records`` (the record table and, gathered, its rows).  On CUDA
+tensors the one launch does all four: ``binning.keys`` follows it and the
+other three follow one another, so they read a mark's cost.
 """
 
 from __future__ import annotations
@@ -69,10 +73,30 @@ def record_lanes(spec) -> int:
     return _round_up(max(n, 16), 8)
 
 
-def pack_triangle_records(setup, spec=()):
-    """(T, record_lanes(spec)) f32 record per triangle."""
+def spec_columns(setup, spec=()):
+    """The (T,) columns of the record's varying lanes, in lane order after
+    the BASE_LANES (see record_lanes)."""
     from ..pipelines.shaders import _CONST_SOURCES, _INTERP_SOURCES
 
+    cols = []
+    for name, comps, mode in spec or ():
+        if mode == "interp":
+            a = setup[_INTERP_SOURCES[name]]
+            for c in range(comps):
+                for v in range(3):
+                    cols.append(a[:, v] if a.ndim == 2 else a[:, v, c])
+        elif mode == "const":
+            for c in range(comps):
+                cols.append(setup[_CONST_SOURCES[name]][:, c])
+        elif mode.startswith("texidx"):
+            for c in range(2):
+                for v in range(3):
+                    cols.append(setup["uv"][:, v, c])
+    return cols
+
+
+def pack_triangle_records(setup, spec=()):
+    """(T, record_lanes(spec)) f32 record per triangle."""
     cz = setup["cz"]
     czf = cz.to(torch.float32)
     safe = torch.where(cz == 0, 1.0, czf)
@@ -88,20 +112,7 @@ def pack_triangle_records(setup, spec=()):
         setup["zv"][:, 1],
         setup["zv"][:, 2],
         torch.arange(T, dtype=torch.float32, device=cz.device),
-    ]
-    for name, comps, mode in spec or ():
-        if mode == "interp":
-            a = setup[_INTERP_SOURCES[name]]
-            for c in range(comps):
-                for v in range(3):
-                    cols.append(a[:, v] if a.ndim == 2 else a[:, v, c])
-        elif mode == "const":
-            for c in range(comps):
-                cols.append(setup[_CONST_SOURCES[name]][:, c])
-        elif mode.startswith("texidx"):
-            for c in range(2):
-                for v in range(3):
-                    cols.append(setup["uv"][:, v, c])
+    ] + spec_columns(setup, spec)
     rec = torch.stack(cols, dim=-1)
     pad = record_lanes(spec) - rec.shape[-1]
     return torch.nn.functional.pad(rec, (0, pad))
@@ -115,6 +126,18 @@ def incidence_cap(T: int, config) -> int:
         cap = max(4 * T, 4096)
     cap = min(cap, T * config.max_span_y * config.max_span_x)
     return _round_up(cap, 8)
+
+
+def key_width(T: int, config) -> int:
+    """K of the packed keys tile_id * K + tri_id, which must fit in i32:
+    raises ValueError where they would not."""
+    K = 1 << int(T).bit_length()
+    if config.num_tiles * K >= 2**31:
+        raise ValueError(
+            f"binning key overflow: {config.num_tiles} tiles x {T} triangles; "
+            "use larger tiles or shard the screen"
+        )
+    return K
 
 
 def bin_triangles(setup, config, spec=(), row_tile_offset=0):
@@ -132,7 +155,27 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
         tile's range).  None with config.csr_indirect=False.
       starts: (num_tiles + 1,) i32; tile t owns slots [starts[t], starts[t+1])
       overflowed: 0-d bool, a coverage cap was hit
+
+    CUDA tensors launch the binning kernel (ops/binning_cuda.py), one
+    launch, after which the four step marks follow one another; CPU tensors
+    run bin_triangles_reference, which it equals bit for bit.
     """
+    key_width(setup["valid"].shape[0], config)  # both versions refuse what the keys cannot pack
+    if setup["valid"].is_cuda:
+        # Imported at the call: binning_cuda imports raster_cuda, which
+        # imports this module.
+        from . import binning_cuda
+
+        out = binning_cuda.bin_triangles(setup, config, spec, row_tile_offset)
+        for step in ("keys", "sort", "csr", "records"):
+            timing.mark(f"binning.{step}")
+        return out
+    return bin_triangles_reference(setup, config, spec, row_tile_offset)
+
+
+def bin_triangles_reference(setup, config, spec=(), row_tile_offset=0):
+    """bin_triangles in plain torch: the candidate keys, a sort,
+    searchsorted and the record pack (the JAX module's algorithm)."""
     th, tw = config.tile_h, config.tile_w
     n_tx, n_ty = config.tiles_x, config.tiles_y
     num_tiles = config.num_tiles
@@ -141,13 +184,7 @@ def bin_triangles(setup, config, spec=(), row_tile_offset=0):
     valid = setup["valid"]
     dev = valid.device
     T = valid.shape[0]
-    # Key packing: key = tile_id * K + tri_id must fit in i32.
-    K = 1 << int(T).bit_length()
-    if num_tiles * K >= 2**31:
-        raise ValueError(
-            f"binning key overflow: {num_tiles} tiles x {T} triangles; "
-            "use larger tiles or shard the screen"
-        )
+    K = key_width(T, config)
     cap = incidence_cap(T, config)
 
     tx0 = setup["x0"] // tw

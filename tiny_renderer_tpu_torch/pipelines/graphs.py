@@ -29,7 +29,7 @@ import weakref
 
 import torch
 
-from ..ops import darboux_cuda, occlusion_cuda, raster_cuda, shadow_cuda, vertex_cuda
+from ..ops import binning_cuda, darboux_cuda, occlusion_cuda, raster_cuda, shadow_cuda, vertex_cuda
 from ..utils import timing
 
 # Captured graphs kept alive at once by a GraphCache (least recently used
@@ -157,15 +157,17 @@ class CapturedGraph:
     Calling it copies new inputs into the static inputs, replays the graph
     and returns fn's outputs from the capture, which the next replay
     overwrites: callers hold `lock` around the call and the reads of the
-    outputs.  Each replay adds the raster, vertex, occlusion, darboux and
-    shadow launches the capture recorded to raster_cuda.LAUNCHES,
-    vertex_cuda.LAUNCHES, occlusion_cuda.LAUNCHES, darboux_cuda.LAUNCHES and
-    shadow_cuda.LAUNCHES.  The capture's allocations go to a private pool
-    released with the graph; fn may branch with device_if.  `marked`: a
+    outputs.  Each replay adds the raster, vertex, occlusion, darboux,
+    shadow and binning launches the capture recorded to
+    raster_cuda.LAUNCHES, vertex_cuda.LAUNCHES, occlusion_cuda.LAUNCHES,
+    darboux_cuda.LAUNCHES, shadow_cuda.LAUNCHES and binning_cuda.LAUNCHES.
+    The capture's allocations go to a private pool released with the
+    graph; fn may branch with device_if.  `marked`: a
     frame graph, whose timing.mark calls record stage stamps when the
     tracer is on at the capture.  Attributes: outputs, launches (raster, by
     mode, per replay), vertex_launches (by kernel, per replay),
-    occlusion_launches, darboux_launches and shadow_launches (per replay),
+    occlusion_launches, darboux_launches, shadow_launches and
+    binning_launches (per replay),
     marks (timing.FrameMarks, or None), capture_s (warm-up + capture
     seconds), pool_bytes (device memory the capture reserved).
     Spans: graph.capture (warm-up and capture), graph.replay (the input
@@ -215,7 +217,8 @@ class CapturedGraph:
                         vertex_cuda.recording() as self.vertex_launches, \
                         occlusion_cuda.recording() as self.occlusion_launches, \
                         darboux_cuda.recording() as self.darboux_launches, \
-                        shadow_cuda.recording() as self.shadow_launches, timing.marking(ring) as self.marks, \
+                        shadow_cuda.recording() as self.shadow_launches, \
+                        binning_cuda.recording() as self.binning_launches, timing.marking(ring) as self.marks, \
                         torch.cuda.graph(self.graph, stream=side, capture_error_mode="thread_local"):
                     self.outputs = fn(*self.inputs)
             except RuntimeError as e:
@@ -246,6 +249,7 @@ class CapturedGraph:
         occlusion_cuda.replayed(self.occlusion_launches)
         darboux_cuda.replayed(self.darboux_launches)
         shadow_cuda.replayed(self.shadow_launches)
+        binning_cuda.replayed(self.binning_launches)
         return self.outputs
 
     def _launch(self, inputs):

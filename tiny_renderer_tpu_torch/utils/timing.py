@@ -577,8 +577,9 @@ def snapshot() -> dict:
     frame_gaps), each ring's clock over the period ("clock": clock_period,
     by device), the spans and frames dropped, and copies of
     raster_cuda.LAUNCHES, vertex_cuda.LAUNCHES, occlusion_cuda.LAUNCHES,
-    darboux_cuda.LAUNCHES and shadow_cuda.LAUNCHES."""
-    from ..ops import darboux_cuda, occlusion_cuda, raster_cuda, shadow_cuda, vertex_cuda
+    darboux_cuda.LAUNCHES, shadow_cuda.LAUNCHES and binning_cuda.LAUNCHES
+    (as binning_launches)."""
+    from ..ops import binning_cuda, darboux_cuda, occlusion_cuda, raster_cuda, shadow_cuda, vertex_cuda
     from ..pipelines import graphs
 
     drain(everything=True)
@@ -612,6 +613,7 @@ def snapshot() -> dict:
         "occlusion_launches": dict(occlusion_cuda.LAUNCHES),
         "darboux_launches": dict(darboux_cuda.LAUNCHES),
         "shadow_launches": dict(shadow_cuda.LAUNCHES),
+        "binning_launches": dict(binning_cuda.LAUNCHES),
     }
 
 
